@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of tsqr_tpu_torch on one NVIDIA GPU: build the stream kernel,
-hold it against its plain PyTorch version, drive the predictive ladder at
-the bench shape (2^20, 128) and at tiers 2 and 3, and print one JSON line
-per kernel and a last JSON line with the device.
+"""Smoke run of tsqr_tpu_torch on one NVIDIA GPU: build the stream and
+panel kernels, hold each against its plain PyTorch version, drive the
+predictive ladder at the bench shape (2^20, 128) through tier 1 and,
+with a zeroed column, through tier 4 (the Householder tree on the panel
+kernel), run it at tiers 2 and 3, run BlockQR past one panel at
+(2^18, 512), and print the ``kernels`` JSON line and a last JSON line
+with the device.
 
     python3 chip_smoke.py [--seed N]
 
@@ -27,7 +30,9 @@ import torch  # noqa: E402
 
 import tsqr_tpu_torch  # noqa: E402
 from tsqr_tpu_torch.harness import flops  # noqa: E402
+from tsqr_tpu_torch.core import tsqr as tsqr_mod  # noqa: E402
 from tsqr_tpu_torch.ops import _build, gram_stream as gs  # noqa: E402
+from tsqr_tpu_torch.ops import panel_kernel as pk  # noqa: E402
 from tsqr_tpu_torch.utils import latms, timing, validation  # noqa: E402
 
 N = 128
@@ -36,7 +41,18 @@ M_CHECK = 1 << 16
 M_TIERS = 1 << 18
 MODE = "bf16x6_cor"
 SOURCE = "tsqr_tpu_torch/ops/csrc/stream_gram.cu"
+PANEL_SOURCE = "tsqr_tpu_torch/ops/csrc/panel_qr.cu"
+KERNELS = ("stream_gram", "panel_qr")
 TOL = {"fp32": 1e-6, "bf16x6_cor": 1e-6, "bf16x3_cor": 1e-5, "bf16": 4e-3}
+ZERO_COL = 33        # the tier-4 path's zeroed column
+M_WIDE, N_WIDE = 1 << 18, 512
+# panel kernel against its plain version: the two sum in other orders
+# (warp reductions against batched matmuls), which moves Q and R of a
+# well-conditioned tile by a few ulps of the mode times sqrt(L); each
+# tile's orthogonality and residual are held to the mode's grade
+# (core/auto.py _TOL)
+PANEL_TOL = {"fp32": 1e-5, "bf16x6_cor": 1e-5, "bf16x3_cor": 1e-4}
+PANEL_CASES = ((264, 256, 128), (64, 256, 64), (33, 200, 50))
 
 
 def rel(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -51,6 +67,13 @@ def as_tuple(x):
 def reset_counts() -> None:
     gs.LAUNCHES = 0
     gs.REDUCE_LAUNCHES = 0
+    pk.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {"stream_gram": gs.LAUNCHES,
+            "stream_gram_reduce": gs.REDUCE_LAUNCHES,
+            "panel_qr": pk.LAUNCHES}
 
 
 def phase_card() -> None:
@@ -61,15 +84,36 @@ def phase_card() -> None:
     print(line, flush=True)
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """Each entry function's registers and spills from ptxas -v."""
+    out, name, stack = [], "?", ""
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.rsplit(" ", 1)[-1]
+        elif "stack frame" in ln:
+            stack = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split('Used', 1)[1].strip()}; {stack}")
+    return out
+
+
 def phase_build() -> None:
+    """Both kernels, one nvcc each, started together; each kernel's
+    registers and spills from ptxas, and the panel kernel's dynamic
+    shared memory (ptxas sees none: it is sized at launch)."""
     t0 = time.perf_counter()
-    _build.load("stream_gram")
-    log = _build.library_path("stream_gram").with_suffix(".log")
-    regs = [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln or "stack frame" in ln]
-    print(f"build: stream_gram.cu {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.BUILD_SECONDS.get('stream_gram', 0.0):.2f} s); "
-          + " | ".join(regs), flush=True)
+    _build.build(KERNELS)
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(KERNELS)} "
+          "sources in parallel", flush=True)
+    for name in KERNELS:
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        print(f"build: {name}.cu (nvcc "
+              f"{_build.BUILD_SECONDS.get(name, 0.0):.2f} s); "
+              + " | ".join(ptxas_lines(log)), flush=True)
+    print(f"build: panel_qr dynamic shared memory {pk.smem_bytes(256, N)} B "
+          f"a CTA at (L, n) = (256, {N}); largest L at n = {N}: "
+          f"{pk.max_leaf_rows(N)} ({pk.smem_bytes(pk.max_leaf_rows(N), N)} "
+          f"B of {pk._SMEM_MAX})", flush=True)
 
 
 def call_sites(mode: str, rinv, delta) -> dict:
@@ -145,8 +189,7 @@ def phase_main(gen) -> dict:
     reset_counts()
     q, r, info = tsqr_tpu_torch.qr_auto_fused(a, MODE, return_info=True)
     torch.cuda.synchronize()
-    counts = {"stream_gram": gs.LAUNCHES,
-              "stream_gram_reduce": gs.REDUCE_LAUNCHES}
+    counts = read_counts()
     orth = validation.orthogonality_accurate(q)
     res = validation.residual_accurate(a, q, r)
     if info["tier"] != 1:
@@ -171,6 +214,135 @@ def phase_main(gen) -> dict:
         "torch_linalg_qr_ms": qr_ms,
         "torch_linalg_qr_tflops": useful / qr_ms / 1e9}), flush=True)
     return {"a": a, "counts": counts}
+
+
+def tile_metrics(a, qt, r) -> tuple[float, float]:
+    """The worst tile's orthogonality ||Q^T Q - I||_F / sqrt(n) and
+    residual ||A - QR||_F / ||A||_F, in float64 on the card."""
+    q64, r64, a64 = qt.double().transpose(1, 2), r.double(), a.double()
+    n = q64.shape[-1]
+    eye = torch.eye(n, dtype=torch.float64, device=a.device)
+    orth = torch.linalg.norm(q64.transpose(1, 2) @ q64 - eye, dim=(1, 2))
+    res = (torch.linalg.norm(a64 - q64 @ r64, dim=(1, 2))
+           / torch.linalg.norm(a64, dim=(1, 2)).clamp_min(1e-300))
+    return float(orth.max()) / math.sqrt(n), float(res.max())
+
+
+def compare_panel(a, mode, what) -> float:
+    """Panel kernel against its plain version on the same tiles; returns
+    the max abs error over Q^T and R."""
+    qt, r = pk.panel_qr_batched(a, mode)
+    qt0, r0 = pk.panel_qr_reference(a, mode)
+    torch.cuda.synchronize()
+    tol = PANEL_TOL[mode]
+    for name, x, y in (("R", r, r0), ("Q^T", qt, qt0)):
+        e = rel(x, y)
+        if not e <= tol:
+            raise AssertionError(f"{what}: rel err of {name} {e:.3e} > {tol:g}")
+    if not torch.equal(torch.tril(r, -1), torch.zeros_like(r)):
+        raise AssertionError(f"{what}: R has nonzeros below the diagonal")
+    orth, res = tile_metrics(a, qt, r)
+    if not (orth < tol and res < tol):
+        raise AssertionError(f"{what}: orth {orth:.2e} residual {res:.2e}")
+    return max(float((qt.double() - qt0.double()).abs().max()),
+               float((r.double() - r0.double()).abs().max()))
+
+
+def phase_panel_vs_plain(gen) -> None:
+    """The panel kernel at three tile shapes and three modes; the
+    (64, 256, 64) tiles have a zero column, the (33, 200, 50) tiles zero
+    rows below row 150, whose Q rows must be exactly 0."""
+    for b, L, n in PANEL_CASES:
+        a = torch.rand(b, L, n, device="cuda", generator=gen) * 2 - 1
+        if n == 64:
+            a[:, :, 7] = 0.0
+        if n == 50:
+            a[:, 150:, :] = 0.0
+        for mode in PANEL_TOL:
+            what = f"panel ({b}, {L}, {n}) {mode}"
+            compare_panel(a, mode, what)
+            if n == 50:
+                qt, _ = pk.panel_qr_batched(a, mode)
+                if not bool((qt[:, :, 150:] == 0).all()):
+                    raise AssertionError(f"{what}: zero rows give nonzero Q")
+    print(f"panel vs plain: {len(PANEL_CASES) * len(PANEL_TOL)} checks at "
+          f"{PANEL_CASES} x {tuple(PANEL_TOL)} within tolerance; zero "
+          "column and zero rows ok", flush=True)
+
+
+def phase_tier4(gen) -> dict:
+    """The ladder on the bench shape with one zeroed column: tiers 0-3
+    fail their gates and tier 4 runs BlockQR (CGS2, one panel) over two
+    Householder trees whose leaves are the panel kernel."""
+    a = torch.rand(M_MAIN, N, device="cuda", generator=gen) * 2 - 1
+    a[:, ZERO_COL] = 0.0
+    torch.cuda.synchronize()
+    reset_counts()
+    q, r, info = tsqr_tpu_torch.qr_auto_fused(a, MODE, return_info=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    orth = validation.orthogonality_accurate(q)
+    res = validation.residual_accurate(a, q, r)
+    if info["tier"] != 4:
+        raise AssertionError(f"tier-4 path took tier {info['tier']}")
+    if not (orth < 1e-5 and res < 1e-5):
+        raise AssertionError(f"tier-4 path orth {orth:.2e} residual "
+                             f"{res:.2e}")
+    if counts["panel_qr"] < 2 or counts["stream_gram"] < 1:
+        raise AssertionError(f"tier-4 path launches {counts}")
+    del q, r
+    ladder = timing.time_cuda(lambda: tsqr_tpu_torch.qr_auto_fused(a, MODE),
+                              reps=3, warmup=1)
+    blockqr_ms = float(np.median(timing.time_cuda(
+        lambda: tsqr_tpu_torch.qr(a, MODE, reorth=True), reps=3, warmup=1)))
+    tree_ms = float(np.median(timing.time_cuda(
+        lambda: tsqr_tpu_torch.tsqr(a, MODE), reps=3, warmup=1)))
+    tree_r_ms = float(np.median(timing.time_cuda(
+        lambda: tsqr_tpu_torch.tsqr(a, MODE, want_q=False), reps=3,
+        warmup=1)))
+    qr_ms = float(np.median(timing.time_cuda(
+        lambda: torch.linalg.qr(a), reps=4, warmup=1)))
+    bs, L, _ = tsqr_mod.plan_tree(M_MAIN, N, pk.max_leaf_rows(N),
+                                  tsqr_mod.DEFAULT_FANIN)
+    print(json.dumps({
+        "tier4_path": f"qr_auto_fused({M_MAIN}x{N} f32, column {ZERO_COL} "
+                      f"zeroed, {MODE})",
+        "tier": info["tier"], "orthogonality": orth, "residual": res,
+        "launches": counts, "leaves": [bs, L, N],
+        "fanin": tsqr_mod.DEFAULT_FANIN,
+        "ladder_ms_median": float(np.median(ladder)), "ladder_ms": ladder,
+        "blockqr_reorth_ms": blockqr_ms, "one_tree_ms": tree_ms,
+        "one_tree_r_only_ms": tree_r_ms,
+        "torch_linalg_qr_ms": qr_ms}), flush=True)
+    return {"a": a, "counts": counts, "leaves": (bs, L)}
+
+
+def phase_qr_wide(gen) -> None:
+    """BlockQR past one panel: four 128-wide panels, CGS2, unrolled."""
+    a = torch.rand(M_WIDE, N_WIDE, device="cuda", generator=gen) * 2 - 1
+    reset_counts()
+    q, r = tsqr_tpu_torch.qr(a, "fp32", reorth=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    orth = validation.orthogonality_accurate(q)
+    res = validation.residual_accurate(a, q, r)
+    if not (orth < 1e-5 and res < 1e-5):
+        raise AssertionError(f"qr ({M_WIDE}, {N_WIDE}) orth {orth:.2e} "
+                             f"residual {res:.2e}")
+    del q, r
+    ms = timing.time_cuda(lambda: tsqr_tpu_torch.qr(a, "fp32", reorth=True),
+                          reps=3, warmup=1)
+    qr_ms = float(np.median(timing.time_cuda(
+        lambda: torch.linalg.qr(a), reps=3, warmup=1)))
+    bs, L, m_pad = tsqr_mod.plan_tree(M_WIDE, N, pk.max_leaf_rows(N),
+                                      tsqr_mod.DEFAULT_FANIN)
+    print(json.dumps({"qr_path": f"qr({M_WIDE}x{N_WIDE} f32, fp32, "
+                                 "reorth=True)",
+                      "orthogonality": orth, "residual": res,
+                      "launches": counts, "leaves_per_tree": [bs, L, N],
+                      "padded_rows": m_pad - M_WIDE,
+                      "ms_median": float(np.median(ms)),
+                      "ms": ms, "torch_linalg_qr_ms": qr_ms}), flush=True)
 
 
 def phase_tiers(seed: int) -> None:
@@ -213,8 +385,36 @@ def phase_gram_error(a) -> None:
     del a64, g64
 
 
-def phase_kernels_line(a, counts, gen) -> None:
-    """Every kernel of the main path at the main path's shapes: its time,
+def panel_entry(tier4: dict) -> dict:
+    """The panel kernel at the tier-4 path's leaf shape: the zero-column
+    input cut into its leaves, as the first tree's leaf launch sees it."""
+    bs, L = tier4["leaves"]
+    leaves = tier4["a"].reshape(bs, L, N)
+    err = compare_panel(leaves, MODE, f"panel main-shape ({bs}, {L}, {N})")
+    k_ms = float(np.median(timing.time_cuda(
+        lambda: pk.panel_qr_batched(leaves, MODE), reps=5, warmup=1)))
+    mode_ms = {md: float(np.median(timing.time_cuda(
+        lambda md=md: pk.panel_qr_batched(leaves, md), reps=3, warmup=1)))
+        for md in ("fp32", "bf16x3_cor")}
+    p_ms = float(np.median(timing.time_cuda(
+        lambda: pk.panel_qr_reference(leaves, MODE), reps=2, warmup=1)))
+    lib_ms = float(np.median(timing.time_cuda(
+        lambda: torch.linalg.qr(leaves), reps=3, warmup=1)))
+    bound = flops.panel_bound(bs, L, N, MODE)
+    return {"name": "panel_qr", "route": "cuda", "source": PANEL_SOURCE,
+            "replaces": "tsqr_tpu/ops/pallas_panel_sb.py:149 (B2); also "
+                        "tsqr_tpu/ops/pallas_panel.py:129 (B3) and "
+                        "docs/attic/pallas_panel_mt.py:194 (B4)",
+            "launches": tier4["counts"]["panel_qr"], "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": lib_ms,
+            "shapes": f"({bs}, {L}, {N}) f32 {MODE} leaves of the tier-4 "
+                      "path; library_ms is batched torch.linalg.qr",
+            "other_modes_ms": mode_ms}
+
+
+def phase_kernels_line(a, counts, gen, tier4: dict) -> None:
+    """Every kernel of the main paths at the main paths' shapes: its time,
     its plain version's time, the library call's time and the bound."""
     g = gs.gram_stream(a, MODE)
     rinv = torch.linalg.solve_triangular(
@@ -271,6 +471,7 @@ def phase_kernels_line(a, counts, gen) -> None:
          "bound_ms": 1e3 * r_bytes / flops.H100_BYTES_PER_S,
          "bound_by": "bytes", "library_ms": r_lib,
          "shapes": f"({part.shape[0]}, {N}, {N}) float64 partials"},
+        panel_entry(tier4),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
 
@@ -286,10 +487,13 @@ def main() -> int:
     phase_card()
     phase_build()
     phase_kernel_vs_plain(gen)
+    phase_panel_vs_plain(gen)
     main_run = phase_main(gen)
+    tier4 = phase_tier4(gen)
     phase_tiers(args.seed)
+    phase_qr_wide(gen)
     phase_gram_error(main_run["a"])
-    phase_kernels_line(main_run["a"], main_run["counts"], gen)
+    phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

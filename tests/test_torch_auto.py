@@ -1,13 +1,17 @@
 """The whole slice: the port's predictive ladder against the JAX
-package's qr_auto_fused (its CPU route), on the same numpy inputs."""
+package's qr_auto_fused (its CPU route), on the same numpy inputs, and the
+port's rule that its entry points run on the card unless asked for the
+CPU."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import tsqr_tpu_torch
 from tsqr_tpu.core import auto as jauto
 from tsqr_tpu_torch.core import auto
+from tsqr_tpu_torch.ops import panel_kernel
 from tsqr_tpu_torch.utils import latms, validation
 
 torch.set_num_threads(2)
@@ -27,7 +31,7 @@ def _matrix(kappa):
 def test_ladder_matches_jax(mode, kappa):
     a = _matrix(kappa)
     q, r, info = auto.qr_auto_fused(torch.from_numpy(a), mode,
-                                    return_info=True)
+                                    return_info=True, device="cpu")
     qj, rj, infoj = jauto.qr_auto_fused(jnp.asarray(a), mode,
                                         return_info=True)
     tier_j = int(np.asarray(infoj["tier"]).ravel()[0])
@@ -53,11 +57,39 @@ def test_ladder_matches_jax(mode, kappa):
         assert np.linalg.norm(rn - rj64) / np.linalg.norm(rj64) <= 1e-5
 
 
-def test_rank_deficient_input_raises_tier4():
+@pytest.mark.parametrize("mode", ["bf16x6_cor", "fp32"])
+def test_rank_deficient_input_takes_tier4(mode):
+    # a zero column defeats every Gram tier (tests/test_ooc_auto.py's
+    # forced-tier-4 input): both ladders end on the Householder tree
     a = _matrix(1)
-    a[:, 17] = 0.0
-    with pytest.raises(NotImplementedError, match="tier 4"):
-        auto.qr_auto_fused(torch.from_numpy(a), "bf16x6_cor")
+    a[:, 33] = 0.0
+    launches = panel_kernel.LAUNCHES
+    q, r, info = auto.qr_auto_fused(torch.from_numpy(a), mode,
+                                    return_info=True, device="cpu")
+    qj, rj, infoj = jauto.qr_auto_fused(jnp.asarray(a), mode,
+                                        return_info=True)
+    assert info["tier"] == 4
+    assert int(np.asarray(infoj["tier"]).ravel()[0]) == 4
+    assert panel_kernel.LAUNCHES == launches  # the plain leaf on the CPU
+    tol = auto._TOL[auto.M(mode)]
+    qn, rn = q.numpy(), r.numpy()
+    assert validation.orthogonality(qn) < tol
+    assert validation.residual(a, qn, rn) < tol
+    assert validation.orthogonality(np.asarray(qj)) < tol
+    assert np.array_equal(np.triu(rn), rn) and rn[33, 33] == 0.0
+    # R past the zero column depends on the tree (Q's column 33 is any
+    # unit vector orthogonal to the rest), but R^T R = A^T A does not.
+    # Both trees hold it to the grade of their residual (measured 3.3e-6
+    # at bf16x6_cor, 7e-7 at fp32, in either package), so the port is
+    # held to twice JAX's error
+    a64 = a.astype(np.float64)
+    g = a64.T @ a64
+
+    def gram_err(rr):
+        rr = np.asarray(rr, np.float64)
+        return np.linalg.norm(rr.T @ rr - g) / np.linalg.norm(g)
+
+    assert gram_err(rn) <= 2 * gram_err(rj)
 
 
 def test_ladder_bf16_matches_jax_tier():
@@ -65,11 +97,37 @@ def test_ladder_bf16_matches_jax_tier():
     # input takes the cheap-mode tier 2 in both packages
     a = _matrix(1)
     q, r, info = auto.qr_auto_fused(torch.from_numpy(a).bfloat16(), "bf16",
-                                    return_info=True)
+                                    return_info=True, device="cpu")
     _, _, infoj = jauto.qr_auto_fused(jnp.asarray(a).astype(jnp.bfloat16),
                                       "bf16", return_info=True)
     assert info["tier"] == int(np.asarray(infoj["tier"]).ravel()[0])
     assert q.dtype == r.dtype == torch.bfloat16
     assert validation.orthogonality(q) < auto._TOL[auto.M.BF16]
     with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        auto.qr_auto_fused(torch.from_numpy(a), "fp32", fast_method="cholqr1")
+        auto.qr_auto_fused(torch.from_numpy(a), "fp32", fast_method="cholqr1",
+                           device="cpu")
+
+
+ENTRY_POINTS = {
+    "qr_auto_fused": lambda a, **kw: tsqr_tpu_torch.qr_auto_fused(a, **kw),
+    "fastqr": lambda a, **kw: tsqr_tpu_torch.fastqr(a, "fp32",
+                                                    "cholqr1_fused", **kw),
+    "tsqr": lambda a, **kw: tsqr_tpu_torch.tsqr(a, **kw),
+    "qr": lambda a, **kw: tsqr_tpu_torch.qr(a, **kw),
+    "panel_qr": lambda a, **kw: tsqr_tpu_torch.panel_qr(a, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_run_on_the_card_unless_asked(name, monkeypatch):
+    # without a card, an entry point called without device="cpu" raises
+    # instead of carrying on on the CPU; with device="cpu" it runs there
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (300, 12)).astype(np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name](a)
+    q, r = ENTRY_POINTS[name](a, device="cpu")[:2]
+    assert q.device.type == r.device.type == "cpu"
+    assert validation.orthogonality(q) < 1e-5
+    assert validation.residual(a, q, r) < 1e-5

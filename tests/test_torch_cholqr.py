@@ -108,7 +108,7 @@ def test_cholqr3_write_q_variants_match_jax(variant):
     m, n = SHAPES[0]
     a = _matrix(m, n, 1e3 if variant == "safe" else 1)
     q, r = cholqr.fastqr(torch.from_numpy(a), "fp32", "cholqr3_fused",
-                         variant)
+                         variant, device="cpu")
     qj, rj = jcholqr.cholqr3_fused(jnp.asarray(a), "fp32", interpret=True,
                                    variant=variant)
     assert _rel(r, rj) <= 1e-5
@@ -142,6 +142,31 @@ def test_k2_bound_matches_jax():
     assert k2 >= 0.9e6  # never under-reports kappa^2
 
 
+def test_iter_loop_ends_on_a_singular_gram_like_jax():
+    # a zero column: the unshifted Cholesky fails on every pass, so the
+    # k2 exit signal stays NaN and the measured orthogonality stays far
+    # from _ORTH_EXIT; both host loops stop at max_shifted, and the tail
+    # Cholesky's NaN is what sends the ladder on to tier 4
+    a = _matrix(2048, 64, 1)
+    a[:, 9] = 0.0
+    at, aj = torch.from_numpy(a), jnp.asarray(a)
+    n, max_shifted = 64, 16
+
+    def run(mod, x, t):
+        g0 = t(x.T @ x)
+        out = mod._iter_shifted_loop(
+            g0, lambda f: (x @ f).T @ (x @ f),
+            lambda g: mod._shift_value_fused(g, n, 16), n,
+            0.1 / 6e-8, max_shifted)
+        return int(out[3]), out[2]
+
+    passes, g = run(cholqr, at, lambda g: g)
+    passes_j, g_j = run(jcholqr, aj, lambda g: g)
+    assert passes == passes_j == max_shifted
+    assert torch.isnan(cholqr._chol_r(g)).any()
+    assert bool(jnp.isnan(jcholqr._chol_r(g_j)).any())
+
+
 def test_chol_r_returns_nan_on_indefinite():
     g = torch.tensor([[1.0, 2.0], [2.0, 1.0]])
     r = cholqr._chol_r(g, shift=None)
@@ -153,13 +178,14 @@ def test_unported_paths_raise():
     a = torch.from_numpy(_matrix(256, 64, 1))
     for method in ("cholqr2", "cholqr2_fused", "rand_cholqr", "cholqr3"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cholqr.fastqr(a, "fp32", method=method)
+            cholqr.fastqr(a, "fp32", method=method, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cholqr.cholqr1_fused(a, "fp32", inplace=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cholqr.cholqr1_fused(torch.zeros(512, 256), "fp32")
     with pytest.raises(ValueError, match="m >= n"):
-        cholqr.fastqr(a.T.contiguous(), "fp32", method="cholqr1_fused")
+        cholqr.fastqr(a.T.contiguous(), "fp32", method="cholqr1_fused",
+                      device="cpu")
     with pytest.raises(ValueError, match="cheap-dot"):
         cholqr.cholqr3_fused(a, "bf16", variant="compact")
     with pytest.raises(ValueError):

@@ -1,6 +1,7 @@
-"""The stream kernel on a CUDA card, against its plain PyTorch version.
+"""The stream and panel kernels on a CUDA card, against their plain
+PyTorch versions, and the ladder's tiers on the card.
 
-These tests need a card (the kernel has no CPU mode) and skip without
+These tests need a card (the kernels have no CPU mode) and skip without
 one.  The file imports no JAX, so on a machine with a card and without
 JAX it runs alone:
 
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from tsqr_tpu_torch.core import auto
-from tsqr_tpu_torch.ops import gram_stream
+from tsqr_tpu_torch.ops import gram_stream, panel_kernel
 from tsqr_tpu_torch.utils import latms, validation
 
 pytestmark = pytest.mark.gpu
@@ -25,7 +26,7 @@ N = 128
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the stream kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -85,13 +86,58 @@ def test_kernel_raises_on_what_it_does_not_take(card):
         gram_stream.stream(a, (rinv,) * 4, ("fp32",) * 4, write_q=True)
 
 
+def _tiles(card, b, L, n, seed=1):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-1, 1, (b, L, n)).astype(
+        np.float32)).to(card)
+
+
+@pytest.mark.parametrize("n", [128, 64, 50])
+@pytest.mark.parametrize("mode", ["fp32", "bf16x3_cor", "bf16x6_cor"])
+def test_panel_kernel_matches_plain_version(card, mode, n):
+    L = 256 if n > 50 else 200
+    a = _tiles(card, 12, L, n)
+    a[:, :, 3] = 0.0           # a zero column: H = I
+    a[:, L - 40:, :] = 0.0     # zero rows below every pivot
+    launches = panel_kernel.LAUNCHES
+    qt, r = panel_kernel.panel_qr_batched(a, mode)
+    assert panel_kernel.LAUNCHES == launches + 1
+    qt0, r0 = panel_kernel.panel_qr_reference(a, mode)
+    # the two sum in other orders; Q and R of these well-conditioned
+    # tiles move by a few ulps of the mode times sqrt(L)
+    tol = 1e-4 if mode == "bf16x3_cor" else 1e-5
+    assert _rel(r, r0) <= tol and _rel(qt, qt0) <= tol
+    assert torch.equal(torch.tril(r, -1), torch.zeros_like(r))
+    assert bool((qt[:, :, L - 40:] == 0).all())
+    for t in range(a.shape[0]):
+        q = qt[t].T
+        assert validation.orthogonality_accurate(q) < tol
+        assert validation.residual_accurate(a[t], q, r[t]) < tol
+
+
+def test_panel_kernel_raises_on_what_it_does_not_take(card):
+    with pytest.raises(ValueError, match="n <="):
+        panel_kernel.panel_qr_batched(_tiles(card, 2, 512, 160), "fp32")
+    too_tall = panel_kernel.max_leaf_rows(128) + 8
+    with pytest.raises(ValueError, match="holds L <="):
+        panel_kernel.panel_qr_batched(_tiles(card, 2, too_tall, 128), "fp32")
+    with pytest.raises(ValueError, match="in-kernel mode"):
+        panel_kernel.panel_qr_batched(_tiles(card, 2, 256, 128),
+                                      "bf16x3_cor_emu")
+
+
 def test_ladder_tiers_on_card(card):
-    for kappa, want in ((1, 1), (1e3, 2), (2 ** 18, 3)):
+    for kappa, want in ((1, 1), (1e3, 2), (2 ** 18, 3), (0, 4)):
         a_np = (np.random.default_rng(3).uniform(-1, 1, (8192, N)).astype(
-            np.float32) if kappa == 1
+            np.float32) if kappa in (0, 1)
             else latms.rand_matrix_with_cond(5, 8192, N, kappa)[0])
+        if kappa == 0:
+            a_np[:, 33] = 0.0  # a zero column defeats every Gram tier
         a = torch.from_numpy(a_np).to(card)
+        launches = panel_kernel.LAUNCHES
         q, r, info = auto.qr_auto_fused(a, "bf16x6_cor", return_info=True)
         assert info["tier"] == want
+        if want == 4:  # two trees (CGS2), one leaf launch each
+            assert panel_kernel.LAUNCHES == launches + 2
         assert validation.orthogonality_accurate(q) < 1e-5
         assert validation.residual_accurate(a, q, r) < 1e-5

@@ -43,6 +43,12 @@ def test_port_imports_no_jax(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("tsqr_tpu_torch/ops/gram_stream.py",
+                 "tsqr_tpu_torch/ops/panel_kernel.py",
+                 "tsqr_tpu_torch/ops/householder.py",
+                 "tsqr_tpu_torch/ops/panel_qr.py",
+                 "tsqr_tpu_torch/core/tsqr.py",
+                 "tsqr_tpu_torch/core/blockqr.py",
+                 "tsqr_tpu_torch/utils/device.py",
                  "tsqr_tpu_torch/core/auto.py", "chip_smoke.py"):
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("tsqr_tpu.modes")

@@ -1,10 +1,11 @@
-"""The predictive QR ladder, tiers 0-3, on the stream kernel.
+"""The predictive QR ladder: tiers 0-3 on the stream kernel, tier 4 on
+the Householder tree.
 
 Counterpart of ``qr_auto_fused`` in ``tsqr_tpu/core/auto.py``.  Each
 ``lax.cond`` of the reference is a Python branch on one synced device
-scalar; the ladder always runs the fused pipelines over
-``ops.gram_stream.stream``.  Tier 4 (the Householder tree) is not ported
-yet: an input that reaches it raises ``NotImplementedError``.
+scalar; tiers 0-3 always run the fused pipelines over
+``ops.gram_stream.stream``, and tier 4 is ``core.blockqr.qr`` over the
+TSQR tree, whose leaf is the panel kernel (``ops.panel_kernel``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ import math
 import torch
 
 from tsqr_tpu_torch import modes
-from tsqr_tpu_torch.core import cholqr
+from tsqr_tpu_torch.core import blockqr, cholqr
+from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.ops import gram_stream
+from tsqr_tpu_torch.utils import device as _device
 
 Tensor = torch.Tensor
 
@@ -35,8 +38,6 @@ _TOL = {
 }
 _EPS_GATE = cholqr._EPS_GATE
 _SAFETY = 8.0  # covers the O(1) constant in orth ~ c kappa^2 eps
-
-_TIER4 = "tier 4 (Householder tree) is not ported yet — ROADMAP A.5"
 
 
 def _kappa2_max(base_method: str, eps: float, tol: float) -> float:
@@ -65,8 +66,13 @@ def qr_auto_fused(a: Tensor, mode="fp32",
                   fast_variant: str = "safe",
                   mid_method: str | None = "cholqr3_fused",
                   mid_variant: str = "compact",
+                  impl: str | None = None,
+                  leaf_rows: int | None = None,
+                  fanin: int | None = None,
+                  reorth: bool = True,
                   return_info: bool = False,
-                  iter_tier: bool = True):
+                  iter_tier: bool = True,
+                  device=None):
     """Self-validating QR: the predictive ladder.
 
     Tier 0: stream G = A^T A, Cholesky it, and bound kappa(A)^2 from
@@ -74,13 +80,20 @@ def qr_auto_fused(a: Tensor, mode="fp32",
     method (for cholqr1: one Q-writing pass reusing R1).  Tier 2: the
     compact shifted CholeskyQR3 reusing G, gated by the Q-Gram of its last
     pass.  Tier 3 (corrected/fp32 modes): the iterated shifted
-    CholeskyQR, gated the same way.  Tier 4 raises
-    ``NotImplementedError`` (not ported).
+    CholeskyQR, gated the same way.  Tier 4 (unconditional): BlockQR
+    over the Householder tree with CGS2 (``reorth``), whose leaf is the
+    panel kernel: ``impl``, ``leaf_rows`` and ``fanin`` go to
+    :func:`blockqr.qr`, and None takes the tree's defaults (the kernel
+    leaf, the largest tile its shared memory holds at this n, fan-in
+    ``tsqr.DEFAULT_FANIN``).
+
+    Runs on the card unless ``device="cpu"``.
 
     Returns (q, r), or (q, r, info) with ``info["tier"]`` (an int) and
     ``info["kappa2_est"]`` (the (1, 1) tier-0 bound) when
     ``return_info``."""
     policy = modes.resolve(mode)
+    a = _device.place(a, device, "qr_auto_fused")
     tol = _TOL[policy.mode]
     eps = _EPS_GATE[policy.mode]
     mname = policy.mode.value
@@ -117,10 +130,18 @@ def qr_auto_fused(a: Tensor, mode="fp32",
                                    out_dtype=io)
             return done(q, r1, 1)
         q, r = cholqr.fastqr(a, mode, method=fast_method,
-                             variant=fast_variant)
+                             variant=fast_variant, device=a.device)
         return done(q, r, 1)
+
+    def tier4():
+        q, r = blockqr.qr(a, policy, reorth=reorth, impl=impl,
+                          leaf_rows=leaf_rows,
+                          fanin=fanin or tsqr_mod.DEFAULT_FANIN,
+                          device=a.device)
+        return done(q, r, 4)
+
     if mid_method is None:
-        raise NotImplementedError(_TIER4)
+        return tier4()
 
     # ---- tier 2: robust shifted CholeskyQR3 ----
     if (mid_method == "cholqr3_fused" and mid_variant == "compact"
@@ -132,16 +153,17 @@ def qr_auto_fused(a: Tensor, mode="fp32",
         mv = mid_variant if policy.mode not in cholqr._CHEAP_DOT else "safe"
         if mid_method != "cholqr3_fused":
             mv = "safe"
-        q_m, r_m = cholqr.fastqr(a, mode, method=mid_method, variant=mv)
+        q_m, r_m = cholqr.fastqr(a, mode, method=mid_method, variant=mv,
+                                 device=a.device)
         orth_m = _gate_orth(q_m)
     if bool(orth_m < tol):
         return done(q_m, r_m, 2)
     if policy.mode in cholqr._CHEAP_DOT or not iter_tier:
-        raise NotImplementedError(_TIER4)
+        return tier4()
 
     # ---- tier 3: iterated shifted CholeskyQR ----
     q_i, r_i, gq_i = cholqr.cholqr_iter_fused(a32, mode, g1=g,
                                               return_qgram=True)
     if bool(_orth_of_gram(gq_i) < tol):
         return done(q_i, r_i, 3)
-    raise NotImplementedError(_TIER4)
+    return tier4()

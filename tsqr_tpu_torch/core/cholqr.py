@@ -21,6 +21,7 @@ import torch
 
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.ops import gram_stream
+from tsqr_tpu_torch.utils import device as _device
 
 Tensor = torch.Tensor
 
@@ -363,10 +364,11 @@ _NOT_PORTED_METHODS = ("cholqr1", "cholqr2", "cholqr3", "cholqr2_fused",
 
 
 def fastqr(a: Tensor, mode="fp32", method: str = "cholqr3_fused",
-           variant: str = "safe") -> tuple[Tensor, Tensor]:
+           variant: str = "safe", device=None) -> tuple[Tensor, Tensor]:
     """Tall-skinny QR through one of the ported methods: cholqr1_fused,
     cholqr3_fused (variants safe, fast, fastest, compact) and
-    cholqr_iter_fused."""
+    cholqr_iter_fused.  Runs on the card unless ``device="cpu"``."""
+    a = _device.place(a, device, "fastqr")
     m, n = a.shape
     if m < n:
         raise ValueError(f"fastqr requires m >= n, got {tuple(a.shape)}")

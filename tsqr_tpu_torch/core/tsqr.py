@@ -1,0 +1,262 @@
+"""TSQR: communication-avoiding tall-skinny QR over a reduction tree.
+
+Counterpart of ``tsqr_tpu/core/tsqr.py``.  The leaves are equal,
+8-row-aligned tiles of the zero-padded input, factored in one batched
+call; their R factors are stacked ``fanin`` at a time and factored again
+up to the root; Q is rebuilt down the tree by batched products at the
+mode.  Zero padding is exact: padded rows lie below every pivot, so they
+never enter a reflector, and their Q rows come out exactly 0.
+
+The leaf is the panel kernel (``ops/csrc/panel_qr.cu``, through
+``ops.panel_kernel``) unless the caller asks for the Householder of
+``ops.householder``.  The kernel returns Q^T (B, n, L); the tree keeps
+it as it is and reads it through a transposed view in the backward
+product.  The inner nodes, (fanin n, n) tiles, use the blocked
+Householder, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+from tsqr_tpu_torch import modes
+from tsqr_tpu_torch.ops import householder, panel_kernel
+from tsqr_tpu_torch.utils import device as _device
+
+Tensor = torch.Tensor
+
+# the Householder leaf's height; the kernel leaf's is the largest tile
+# its shared memory holds, panel_kernel.max_leaf_rows(n)
+DEFAULT_LEAF_ROWS = 2048
+DEFAULT_FANIN = 8
+DEFAULT_BLOCK = 24
+
+# Above LEAF_SEQ_THRESHOLD leaf elements (m_pad n), the leaf QR and the
+# layer-0 backward product run chunk by chunk over ~LEAF_CHUNK_ELEMS
+# leaf elements instead of over the whole batch at once.  The peak of
+# the tree is the layer-0 product at bf16x6_cor: the padded A, the
+# leaves' Q^T, three split parts of Q^T and its two residuals, the
+# per-order products and Q, about ten panel-sized float32 tensors.  Ten
+# of 2^30 elements are 40 GiB, half of the H100's 80 GB, which leaves the
+# caller room for its own data; chunks of 2^28 elements keep the live
+# temporaries near 10 GiB above that.
+LEAF_SEQ_THRESHOLD = 1 << 30
+LEAF_CHUNK_ELEMS = 1 << 28
+
+_KERNEL_IMPLS = ("pallas", "pallas_sb")
+_PLAIN_IMPLS = ("pallas_interpret", "pallas_sb_interpret")
+
+
+def _leaf_chunks(bs: int, elems_per_leaf: int) -> int:
+    """Number of sequential leaf chunks (1 = the whole batch at once)."""
+    if bs * elems_per_leaf <= LEAF_SEQ_THRESHOLD:
+        return 1
+    target = max(1, LEAF_CHUNK_ELEMS // elems_per_leaf)  # leaves per chunk
+    s = 1
+    while s < bs and bs // s > target:
+        s *= 2
+    return s
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def plan_tree(m: int, n: int, leaf_rows: int = DEFAULT_LEAF_ROWS,
+              fanin: int = DEFAULT_FANIN) -> tuple[int, int, int]:
+    """Choose (batch_size, leaf_rows, m_padded) for an (m, n) panel:
+    equal 8-row-aligned leaves of at least 2n rows, a leaf count that is
+    a power of ``fanin`` (2, 4, 8, ...), zero padding below."""
+    if fanin < 2 or fanin & (fanin - 1):
+        raise ValueError(f"fanin must be a power of two >= 2, got {fanin}")
+    leaf_rows = max(leaf_rows, _round_up(2 * n, 8))
+    if m <= leaf_rows:
+        mp = _round_up(m, 8)
+        return 1, mp, mp
+    n_leaves = -(-m // leaf_rows)
+    bs = fanin
+    while bs < n_leaves:
+        bs *= fanin
+    # equal leaves, 8-row aligned; padding overhead <= 8 bs rows
+    L = max(_round_up(-(-m // bs), 8), _round_up(n, 8))
+    return bs, L, bs * L
+
+
+def _pad_rows(a: Tensor, m_pad: int) -> Tensor:
+    m = a.shape[0]
+    if m_pad == m:
+        return a
+    return torch.cat([a, a.new_zeros(m_pad - m, a.shape[1])])
+
+
+def _make_batched_qr(policy: modes.Policy, impl: str,
+                     block: int) -> Callable[[Tensor], tuple[Tensor, Tensor]]:
+    """Batched-QR factory: (B, rows, n) -> (Q (B, rows, n), R (B, n, n)).
+
+    "jnp": the blocked Householder at ``block``.  "pallas", "pallas_sb"
+    (the reference's names for its two panel kernels): the CUDA panel
+    kernel on a CUDA tensor, its plain version on a CPU tensor; the
+    kernel's W-Y block is its own 16 columns.  "pallas_interpret",
+    "pallas_sb_interpret": the kernel's plain version on either device.
+    The panel kernels' Q comes back as the transposed view of their
+    Q^T."""
+    if impl == "jnp":
+        return lambda x: householder.blocked_householder_qr(x, policy.mm,
+                                                            block)
+    if impl in _KERNEL_IMPLS:
+        fn = panel_kernel.panel_qr_batched
+    elif impl in _PLAIN_IMPLS:
+        fn = panel_kernel.panel_qr_reference
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+
+    def call(x):
+        qt, r = fn(x, policy.mode.value)
+        return qt.transpose(-2, -1), r
+    return call
+
+
+def tsqr(a: Tensor,
+         mode: modes.ComputeMode | str | modes.Policy = "fp32",
+         leaf_rows: int | None = None,
+         fanin: int = DEFAULT_FANIN,
+         leaf_qr: Callable | None = None,
+         impl: str | None = None,
+         block: int = DEFAULT_BLOCK,
+         collect_level_q: bool = False,
+         want_q: bool = True,
+         tree_impl: str = "jnp",
+         seq_chunks: int | None = None,
+         device=None):
+    """Thin QR of a tall-skinny (m, n) matrix: returns (Q (m, n),
+    R (n, n)).  Runs on the card unless ``device="cpu"``.
+
+    Args:
+      a: (m, n) with m >= n.
+      mode: precision policy (see :mod:`tsqr_tpu_torch.modes`).
+      leaf_rows: target leaf height; None is the panel kernel's largest
+        tile at this n (``panel_kernel.max_leaf_rows``) for the kernel
+        leaf, else ``DEFAULT_LEAF_ROWS``.
+      fanin: tree fan-in (a power of two).
+      leaf_qr: optional override of the leaf's batched QR,
+        (B, L, n) -> (Q, R).
+      impl: the leaf's batched QR (see :func:`_make_batched_qr`); None is
+        the panel kernel ("pallas_sb").
+      block: W-Y block width of the blocked Householder (the inner nodes,
+        and a "jnp" leaf).
+      collect_level_q: also return the per-level Q batches:
+        (q, r, [level Qs]).
+      want_q: False skips the backward Q reconstruction: (None, R).
+      tree_impl: batched QR of the inner nodes (default "jnp").
+      seq_chunks: sequential leaf-chunk count for the leaf QR and the
+        layer-0 backward product; None picks 1 below LEAF_SEQ_THRESHOLD
+        leaf elements, else enough to keep each chunk near
+        LEAF_CHUNK_ELEMS.
+    """
+    policy = modes.resolve(mode)
+    a = _device.place(a, device, "tsqr")
+    m, n = a.shape
+    if m < n:
+        raise ValueError(f"tsqr requires m >= n, got {tuple(a.shape)}")
+    a = a.to(torch.float32)
+    mm = policy.mm
+    impl = "pallas_sb" if impl is None else impl
+    if leaf_rows is None:
+        leaf_rows = (panel_kernel.max_leaf_rows(n) if leaf_qr is None
+                     and impl in _KERNEL_IMPLS + _PLAIN_IMPLS
+                     else DEFAULT_LEAF_ROWS)
+    if leaf_qr is None:
+        leaf_qr = _make_batched_qr(policy, impl, block)
+    batched_qr = _make_batched_qr(policy, tree_impl, block)
+    io, work = policy.io_dtype, policy.work_dtype
+
+    bs, L, m_pad = plan_tree(m, n, leaf_rows, fanin)
+    a = _pad_rows(a, m_pad)
+
+    if bs == 1:
+        q, r = leaf_qr(a[None])
+        r_out = r[0].to(io)
+        q_out = q[0, :m].to(io) if want_q else None
+        return (q_out, r_out, [q]) if collect_level_q else (q_out, r_out)
+
+    # ---- forward: leaf QR, then the R-reduction tree ----
+    leaves = a.reshape(bs, L, n)
+    seq = _leaf_chunks(bs, L * n) if seq_chunks is None else seq_chunks
+    if seq > 1 and bs % seq == 0:
+        outs = [leaf_qr(c) for c in leaves.reshape(seq, bs // seq, L, n)]
+        q0 = [qc.to(work) for qc, _ in outs]
+        r = torch.cat([rc for _, rc in outs])
+    else:
+        seq = 1
+        q0, r = leaf_qr(leaves)
+        q0 = [q0.to(work)]
+
+    qs: list[Tensor] = []
+    widths: list[int] = []
+    while r.shape[0] > 1:
+        b = r.shape[0]
+        f = min(fanin, b)
+        qk, r = batched_qr(r.reshape(b // f, f * n, n))
+        qs.append(qk.to(work))
+        widths.append(f)
+    r_out = torch.triu(r[0])
+
+    if not want_q:
+        r_only = r_out.to(io)
+        return (None, r_only, [torch.cat(q0)] + qs) if collect_level_q \
+            else (None, r_only)
+
+    # ---- backward: Q reconstruction down the tree ----
+    # c starts as the root Q cut into per-child (n, n) blocks
+    c = qs[-1].to(torch.float32).reshape(widths[-1], n, n)
+    for qk, f in zip(reversed(qs[:-1]), reversed(widths[:-1])):
+        prod = mm(qk.to(torch.float32), c)           # (bk, f n, n)
+        c = prod.reshape(prod.shape[0] * f, n, n)
+    parts = [mm(qc.to(torch.float32), cc)          # (bs / seq, L, n)
+             for qc, cc in zip(q0, c.reshape(seq, bs // seq, n, n))]
+    q = parts[0] if seq == 1 else torch.cat(parts)
+    q = q.reshape(m_pad, n)[:m]
+    if collect_level_q:
+        return q.to(io), r_out.to(io), [torch.cat(q0)] + qs
+    return q.to(io), r_out.to(io)
+
+
+def get_batch_size(m: int, leaf_rows: int = DEFAULT_LEAF_ROWS,
+                   fanin: int = DEFAULT_FANIN) -> int:
+    """Leaf count of the tree."""
+    return plan_tree(m, 1, leaf_rows, fanin)[0]
+
+
+def get_batch_size_log2(m: int, leaf_rows: int = DEFAULT_LEAF_ROWS) -> int:
+    """Tree depth in binary-equivalent levels."""
+    return int(math.log2(get_batch_size(m, leaf_rows, 2)))
+
+
+def get_working_q_size(m: int, n: int, leaf_rows: int = DEFAULT_LEAF_ROWS,
+                       fanin: int = DEFAULT_FANIN) -> int:
+    """Elements of the tree's Q storage (leaves plus every level)."""
+    bs, L, m_pad = plan_tree(m, n, leaf_rows, fanin)
+    wq = m_pad * n
+    b = bs
+    while b > 1:
+        f = min(fanin, b)
+        wq += (b // f) * f * n * n
+        b //= f
+    return wq
+
+
+def get_working_r_size(m: int, n: int, leaf_rows: int = DEFAULT_LEAF_ROWS,
+                       fanin: int = DEFAULT_FANIN) -> int:
+    """Elements of ping-pong R storage."""
+    bs, _, _ = plan_tree(m, n, leaf_rows, fanin)
+    return 2 * bs * n * n
+
+
+def working_memory_elems(m: int, n: int, leaf_rows: int = DEFAULT_LEAF_ROWS,
+                         fanin: int = DEFAULT_FANIN) -> int:
+    """Peak intermediate elements of the tree."""
+    return (get_working_q_size(m, n, leaf_rows, fanin)
+            + get_working_r_size(m, n, leaf_rows, fanin))

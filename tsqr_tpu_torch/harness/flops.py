@@ -1,9 +1,10 @@
-"""Flop and byte counts, and the H100's lower bound for a stream pass.
+"""Flop and byte counts, and the H100's lower bound for a kernel call.
 
 ``qr_flops`` is the useful flop count of a thin QR (the JAX package's
 count), against which the ladder's TFLOP/s are reported.
-``stream_bound`` counts what one ``stream`` call must move and compute
-and turns it into the least time an H100 SXM could take for it.
+``stream_bound`` and ``panel_bound`` count what one ``stream`` call or
+one panel-kernel launch must move and compute and turn it into the
+least time an H100 SXM could take for it.
 """
 
 from __future__ import annotations
@@ -46,6 +47,26 @@ def stream_bound(m: int, n: int, dot_modes=(), gram_mode: str | None = None,
         counts.append((gram_mode, GRAM_PRODUCTS[gram_mode]))
     fp32 = sum(unit * k for md, k in counts if md == "fp32")
     bf16 = sum(unit * k for md, k in counts if md != "fp32")
+    return _bound(nbytes, bf16, fp32)
+
+
+def panel_bound(batch: int, L: int, n: int, mode: str) -> dict:
+    """Bytes, flops and the H100 lower bound of one panel-kernel launch
+    on (batch, L, n) float32 tiles: A read once, Q^T (batch, n, L) and R
+    (batch, n, n) written once; 4 L n^2 - 4 n^3 / 3 flops a tile (the
+    Householder factorization, 2 L n^2 - 2 n^3 / 3, and the thin-Q build,
+    the same again; the kernel skips the triangle above each block, so
+    the TPU kernel's 4 L n^2 estimate overcounts), counted at the mode's
+    split products as ``stream_bound`` counts a dot.  Same keys as
+    ``stream_bound``."""
+    nbytes = 4 * batch * (2 * L * n + n * n)
+    flops = (batch * (4.0 * L * n * n - (4.0 / 3.0) * n ** 3)
+             * DOT_PRODUCTS[mode])
+    return _bound(nbytes, 0.0 if mode == "fp32" else flops,
+                  flops if mode == "fp32" else 0.0)
+
+
+def _bound(nbytes: float, bf16: float, fp32: float) -> dict:
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = bf16 / H100_BF16_FLOPS + fp32 / H100_FP32_FLOPS
     return {"bytes": nbytes, "bf16_flops": bf16, "fp32_flops": fp32,

@@ -44,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "splits.cuh"  // n_parts, bf16_round, split_store, sum_orders
+
 #define TM 16          // rows per tile (the Kahan granularity)
 #define N_MAX 128      // widest n: bounds the shared-memory footprint
 #define KS 16          // rows of R split into shared memory at a time
@@ -95,31 +97,6 @@ struct Params {
   int residual[3];
 };
 
-// mode codes: 0 fp32 (one unrounded part), 1 bf16 (one part), 2 two bf16
-// parts (bf16x3_*), 3 three bf16 parts (bf16x6_cor)
-__device__ __forceinline__ int n_parts(int code) { return code <= 1 ? 1 : code; }
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Split v into its parts, stored stride apart.
-__device__ __forceinline__ void split_store(float v, int code, float* dst,
-                                            int stride) {
-  if (code == 0) {
-    dst[0] = v;
-    return;
-  }
-  float p0 = bf16_round(v);
-  dst[0] = p0;
-  if (code >= 2) {
-    float r = __fsub_rn(v, p0);
-    float p1 = bf16_round(r);
-    dst[stride] = p1;
-    if (code == 3) dst[2 * stride] = bf16_round(__fsub_rn(r, p1));
-  }
-}
-
 // Shared-memory rows are padded against bank conflicts: the tile, its
 // dot parts, Y and the R slab to sx = np + 4 words (the rows 2t of an mma
 // fragment then fall on distinct banks); the Gram's row-pair words to
@@ -136,15 +113,6 @@ static size_t smem_floats(int np, int n_dots, int gram_code) {
   if (gram_code > 0) f += 3 * (TM / 2) * sg;       // Gram parts, row pairs
   if (gram_code >= 0) f += 2 * np * row_sk(np);    // Kahan sum + compensation
   return f;
-}
-
-// Bucket sums b_0 + b_1 + b_2 of a product, smallest order first.
-__device__ __forceinline__ float sum_orders(float b0, float b1, float b2,
-                                            int order) {
-  float y = order == 2 ? b2 : (order == 1 ? b1 : b0);
-  if (order >= 2) y = __fadd_rn(y, b1);
-  if (order >= 1) y = __fadd_rn(y, b0);
-  return y;
 }
 
 // Two bf16-exact floats as one bf16x2 register (lo in the low half).
