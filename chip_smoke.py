@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Smoke run of tsqr_tpu_torch on one NVIDIA GPU: build the stream and
-panel kernels, hold each against its plain PyTorch version, drive the
-predictive ladder at the bench shape (2^20, 128) through tier 1 and,
-with a zeroed column, through tier 4 (the Householder tree on the panel
-kernel), run it at tiers 2 and 3, run BlockQR past one panel at
-(2^18, 512), and print the ``kernels`` JSON line and a last JSON line
-with the device.
+"""Smoke run of tsqr_tpu_torch on one NVIDIA GPU: build the stream,
+panel and bandwidth-probe kernels, hold each against its plain PyTorch
+version, drive the predictive ladder at the bench shape (2^20, 128)
+through tier 1 and, with a zeroed column, through tier 4 (the
+Householder tree on the panel kernel), run it at tiers 2 and 3, run
+BlockQR past one panel at (2^18, 512), run the measurement path (the
+bandwidth sweep of ``harness.bw`` and the ``harness.mfu`` sweep), the
+in-place QR at (2^22, 128), every cholqr2_fused variant and ``qr_auto``,
+and print the ``kernels`` JSON line and a last JSON line with the
+device.
 
     python3 chip_smoke.py [--seed N]
 
@@ -29,9 +32,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import tsqr_tpu_torch  # noqa: E402
-from tsqr_tpu_torch.harness import flops  # noqa: E402
+from tsqr_tpu_torch.harness import bw, flops, mfu  # noqa: E402
+from tsqr_tpu_torch.core import cholqr  # noqa: E402
 from tsqr_tpu_torch.core import tsqr as tsqr_mod  # noqa: E402
-from tsqr_tpu_torch.ops import _build, gram_stream as gs  # noqa: E402
+from tsqr_tpu_torch.ops import _build, bw_probe, gram_stream as gs  # noqa: E402
 from tsqr_tpu_torch.ops import panel_kernel as pk  # noqa: E402
 from tsqr_tpu_torch.utils import latms, timing, validation  # noqa: E402
 
@@ -42,7 +46,14 @@ M_TIERS = 1 << 18
 MODE = "bf16x6_cor"
 SOURCE = "tsqr_tpu_torch/ops/csrc/stream_gram.cu"
 PANEL_SOURCE = "tsqr_tpu_torch/ops/csrc/panel_qr.cu"
-KERNELS = ("stream_gram", "panel_qr")
+BW_SOURCE = "tsqr_tpu_torch/ops/csrc/bw_probe.cu"
+KERNELS = ("stream_gram", "panel_qr", "bw_probe")
+M_BW = 1 << 22       # the bandwidth sweep's and the in-place runs' rows
+INPLACE_PEAK_MAX = 64 << 20  # bytes a call may allocate above its input
+INPLACE_CASES = (("cholqr1_fused", "safe"), ("cholqr2_fused", "compact"),
+                 ("cholqr2_fused", "turbo"), ("cholqr3_fused", "compact"))
+CHOLQR2_VARIANTS = ("safe", "fast", "fastest", "compact", "turbo")
+MFU_NS = (128, 512)
 TOL = {"fp32": 1e-6, "bf16x6_cor": 1e-6, "bf16x3_cor": 1e-5, "bf16": 4e-3}
 ZERO_COL = 33        # the tier-4 path's zeroed column
 M_WIDE, N_WIDE = 1 << 18, 512
@@ -66,14 +77,22 @@ def as_tuple(x):
 
 def reset_counts() -> None:
     gs.LAUNCHES = 0
+    gs.ALIAS_LAUNCHES = 0
     gs.REDUCE_LAUNCHES = 0
     pk.LAUNCHES = 0
+    bw_probe.READ_LAUNCHES = 0
+    bw_probe.READ_SUM_LAUNCHES = 0
+    bw_probe.COPY_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     return {"stream_gram": gs.LAUNCHES,
+            "stream_gram_alias_q": gs.ALIAS_LAUNCHES,
             "stream_gram_reduce": gs.REDUCE_LAUNCHES,
-            "panel_qr": pk.LAUNCHES}
+            "panel_qr": pk.LAUNCHES,
+            "read_reduce": bw_probe.READ_LAUNCHES,
+            "read_reduce_sum": bw_probe.READ_SUM_LAUNCHES,
+            "copy": bw_probe.COPY_LAUNCHES}
 
 
 def phase_card() -> None:
@@ -385,6 +404,164 @@ def phase_gram_error(a) -> None:
     del a64, g64
 
 
+def phase_bw_vs_plain(gen) -> None:
+    """The probes against their plain versions: read_reduce to 1e-6 of a
+    float64 sum, copy bit for bit, at the sweep's row counts and ragged
+    shapes."""
+    for m, n in ((1 << 16, 128), (1000, 100), (1001, 100)):
+        a = torch.rand(m, n, device="cuda", generator=gen) * 2 - 1
+        for rpc in (8, 2048, 16384):
+            if m % 8 == 0:
+                e = rel(bw_probe.read_reduce(a, rpc),
+                        bw_probe.read_reduce_reference(a))
+                if not e <= 1e-6:
+                    raise AssertionError(f"read_reduce ({m}, {n}) rows/CTA "
+                                         f"{rpc}: rel err {e:.3e}")
+            if not torch.equal(bw_probe.copy(a, rpc),
+                               bw_probe.copy_reference(a)):
+                raise AssertionError(f"copy ({m}, {n}) rows/CTA {rpc} is "
+                                     "not bitwise the plain version")
+    print("probes vs plain: read_reduce within 1e-6 of a float64 sum, copy "
+          "bitwise, at (65536, 128), (1000, 100), (1001, 100)", flush=True)
+
+
+def phase_bw_sweep() -> dict:
+    """The measurement path: ``harness.bw``'s sweep at (2^22, 128)."""
+    reset_counts()
+    rows = bw.sweep(m=M_BW, n=N, loops=5)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["read_reduce"] < 1 or counts["copy"] < 1:
+        raise AssertionError(f"bandwidth sweep launches {counts}")
+    best = {k: max((r for r in rows if r["probe"].startswith(k)),
+                   key=lambda r: r["gbps"]) for k in ("read_reduce", "copy")}
+    print(json.dumps({"bw_path": f"harness.bw.sweep({M_BW}x{N} f32)",
+                      "launches": counts,
+                      "best_read": best["read_reduce"],
+                      "best_copy": best["copy"],
+                      "data_sheet_gbps": flops.H100_BYTES_PER_S / 1e9}),
+          flush=True)
+    return {"counts": counts, "rows": rows}
+
+
+def phase_inplace(gen) -> dict:
+    """fastqr_inplace at (2^22, 128) f32 bf16x6_cor: Q on A's storage,
+    bitwise the non-aliased call's, at the mode's grade, and the call's
+    peak allocation above its input under INPLACE_PEAK_MAX."""
+    a0 = torch.rand(M_BW, N, device="cuda", generator=gen) * 2 - 1
+    out = {}
+    reset_counts()
+    for method, variant in INPLACE_CASES:
+        what = f"{method}/{variant}"
+        if method == "cholqr1_fused":
+            q0, r0 = cholqr.cholqr1_fused(a0, MODE)
+        else:
+            q0, r0 = cholqr._METHODS[method](a0, MODE, variant=variant)
+        a = a0.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        q, r = tsqr_tpu_torch.fastqr_inplace(a, MODE, method, variant)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if q.data_ptr() != a.data_ptr():
+            raise AssertionError(f"in-place {what}: Q is not on A's storage")
+        if not (torch.equal(q, q0) and torch.equal(r, r0)):
+            raise AssertionError(f"in-place {what}: not bitwise the "
+                                 "non-aliased call")
+        del q0, r0
+        orth = validation.orthogonality_accurate(q)
+        res = validation.residual_accurate(a0, q, r)
+        if not (orth < 1e-5 and res < 1e-5):
+            raise AssertionError(f"in-place {what}: orth {orth:.2e} "
+                                 f"residual {res:.2e}")
+        if not peak < INPLACE_PEAK_MAX:
+            raise AssertionError(f"in-place {what}: peak {peak} B above A")
+        out[what] = {"orthogonality": orth, "residual": res,
+                     "peak_bytes_above_input": peak,
+                     "input_bytes": a.numel() * 4}
+        del a, q, r
+    counts = read_counts()
+    if counts["stream_gram_alias_q"] != len(INPLACE_CASES):
+        raise AssertionError(f"in-place path launches {counts}")
+    print(json.dumps({"inplace_path": f"fastqr_inplace({M_BW}x{N} f32, "
+                                      f"{MODE})", "launches": counts,
+                      "runs": out}), flush=True)
+    return {"counts": counts}
+
+
+def phase_cholqr2(a) -> None:
+    """Every cholqr2_fused variant at the bench shape."""
+    out = {}
+    for variant in CHOLQR2_VARIANTS:
+        reset_counts()
+        q, r = tsqr_tpu_torch.fastqr(a, MODE, "cholqr2_fused", variant)
+        torch.cuda.synchronize()
+        launches = gs.LAUNCHES
+        orth = validation.orthogonality_accurate(q)
+        res = validation.residual_accurate(a, q, r)
+        del q, r
+        ms = timing.time_cuda(lambda v=variant: tsqr_tpu_torch.fastqr(
+            a, MODE, "cholqr2_fused", v), reps=5, warmup=1)
+        if not (orth < 1e-5 and res < 1e-5) or launches < 3:
+            raise AssertionError(f"cholqr2_fused/{variant}: orth {orth:.2e} "
+                                 f"residual {res:.2e} launches {launches}")
+        out[variant] = {"ms_median": float(np.median(ms)), "ms": ms,
+                        "stream_launches": launches, "orthogonality": orth,
+                        "residual": res}
+    print(json.dumps({"cholqr2_fused": f"({M_MAIN}x{N} f32, {MODE})",
+                      "variants": out}), flush=True)
+
+
+def phase_mfu() -> None:
+    """``harness.mfu``'s sweep over the reference's eleven configs at
+    m = 2^20, n = 128 (fused) and 512 (their non-fused siblings)."""
+    rows, errors = mfu.sweep(m=M_MAIN, ns=MFU_NS)
+    if errors:
+        raise AssertionError(f"mfu sweep errors: {errors}")
+    want = len(mfu.CONFIGS) + sum(v == "safe" for _, _, v in mfu.CONFIGS)
+    flagged = [r for r in rows if r["flag"]]
+    if len(rows) != want or flagged:
+        raise AssertionError(f"mfu sweep: {len(rows)} rows (want {want}), "
+                             f"flagged {flagged}")
+
+
+def phase_qr_auto(gen) -> None:
+    """qr_auto takes cholqr3 on a uniform input and BlockQR on a
+    zero-column one; qr_auto_fused takes tier 1 past the kernel's range."""
+    a = torch.rand(M_MAIN, N, device="cuda", generator=gen) * 2 - 1
+    q, r, used = tsqr_tpu_torch.qr_auto(a, MODE)
+    checks = {"uniform": (used, validation.orthogonality_accurate(q),
+                          validation.residual_accurate(a, q, r))}
+    del a, q, r
+    a = torch.rand(M_TIERS, N, device="cuda", generator=gen) * 2 - 1
+    a[:, ZERO_COL] = 0.0
+    q, r, used = tsqr_tpu_torch.qr_auto(a, MODE)
+    checks["zero_column"] = (used, validation.orthogonality_accurate(q),
+                             validation.residual_accurate(a, q, r))
+    del a, q, r
+    a = torch.rand(M_WIDE, N_WIDE, device="cuda", generator=gen) * 2 - 1
+    reset_counts()
+    q, r, info = tsqr_tpu_torch.qr_auto_fused(a, MODE, return_info=True)
+    checks["fused_wide"] = (info["tier"], validation.orthogonality_accurate(q),
+                            validation.residual_accurate(a, q, r))
+    counts = read_counts()
+    del a, q, r
+    want = {"uniform": "cholqr3", "zero_column": "blockqr_tsqr",
+            "fused_wide": 1}
+    print(json.dumps({"qr_auto": {
+        k: {"used": u, "orthogonality": o, "residual": e}
+        for k, (u, o, e) in checks.items()},
+        "fused_wide_launches": counts}), flush=True)
+    for k, (u, o, e) in checks.items():
+        if u != want[k] or not (o < 1e-5 and e < 1e-5):
+            raise AssertionError(f"qr_auto {k}: {u} (want {want[k]}), "
+                                 f"orth {o:.2e} residual {e:.2e}")
+    if counts["stream_gram"]:
+        raise AssertionError("qr_auto_fused at n = 512 launched the stream "
+                             "kernel")
+
+
 def panel_entry(tier4: dict) -> dict:
     """The panel kernel at the tier-4 path's leaf shape: the zero-column
     input cut into its leaves, as the first tree's leaf launch sees it."""
@@ -413,7 +590,48 @@ def panel_entry(tier4: dict) -> dict:
             "other_modes_ms": mode_ms}
 
 
-def phase_kernels_line(a, counts, gen, tier4: dict) -> None:
+def probe_entry(name: str, counts: dict, gen) -> dict:
+    """A bandwidth probe at the sweep's shape (2^22, 128) and default rows
+    per CTA: held against its plain version, timed beside it, the library
+    call and the bound."""
+    a = torch.rand(M_BW, N, device="cuda", generator=gen) * 2 - 1
+    if name == "read_reduce":
+        fn, plain = bw_probe.read_reduce, bw_probe.read_reduce_reference
+        lib = (lambda: a.view(-1, 8, N).sum(0))
+        replaces = "scripts/bw_experiments.py:46 (B5)"
+    else:
+        fn, plain = bw_probe.copy, bw_probe.copy_reference
+        lib = (lambda: torch.mul(a, bw_probe.COPY_SCALE))
+        replaces = "scripts/bw_experiments.py:74 (B6)"
+    got, ref = fn(a), plain(a)
+    torch.cuda.synchronize()
+    err = float((got.double() - ref.double()).abs().max())
+    if not (rel(got, ref) <= 1e-6 if name == "read_reduce"
+            else torch.equal(got, ref)):
+        raise AssertionError(f"{name} at ({M_BW}, {N}) disagrees with its "
+                             "plain version")
+    del got, ref
+    bound = flops.probe_bound(M_BW, N, name)
+    entry = {"name": name, "route": "cuda", "source": BW_SOURCE,
+             "replaces": replaces, "launches": counts[name],
+             "max_abs_err": err,
+             "ms": float(np.median(timing.time_cuda(lambda: fn(a), reps=10,
+                                                    warmup=1))),
+             "plain_ms": float(np.median(timing.time_cuda(
+                 lambda: plain(a), reps=5, warmup=1))),
+             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+             "library_ms": float(np.median(timing.time_cuda(
+                 lib, reps=5, warmup=1))),
+             "shapes": f"({M_BW}, {N}) f32, {bw_probe.DEFAULT_ROWS_PER_CTA} "
+                       "rows per CTA"}
+    if name == "read_reduce":
+        entry["sum_stage_launches"] = counts["read_reduce_sum"]
+    entry["gbps"] = bound["bytes"] / entry["ms"] / 1e6
+    return entry
+
+
+def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
+                       inplace: dict) -> None:
     """Every kernel of the main paths at the main paths' shapes: its time,
     its plain version's time, the library call's time and the bound."""
     g = gs.gram_stream(a, MODE)
@@ -426,6 +644,21 @@ def phase_kernels_line(a, counts, gen, tier4: dict) -> None:
     err = max(compare(a, cfg, TOL[MODE], "main-shape") for cfg in calls)
     k_ms = [float(np.median(timing.time_cuda(lambda c=c: gs.stream(a, **c))))
             for c in calls]
+    # the Q pass written over its input (alias_q, the in-place path's call
+    # kind), on a copy of A with an identity factor so that repeated calls
+    # keep A's values
+    a_alias, eye = a.clone(), torch.eye(N, device="cuda")
+    ref = gs.stream_reference(a, (eye,), (MODE,), write_q=True)
+    q_alias = gs.stream(a_alias, (eye,), (MODE,), write_q=True, alias_q=True)
+    torch.cuda.synchronize()
+    if (q_alias.data_ptr() != a_alias.data_ptr()
+            or not rel(q_alias, ref) <= TOL[MODE]):
+        raise AssertionError("alias_q at the main shape")
+    alias_err = float((q_alias.double() - ref.double()).abs().max())
+    del ref, q_alias
+    alias_ms = float(np.median(timing.time_cuda(lambda: gs.stream(
+        a_alias, (eye,), (MODE,), write_q=True, alias_q=True))))
+    del a_alias
     p_ms = [float(np.median(timing.time_cuda(
         lambda c=c: gs.stream_reference(a, **c), reps=2, warmup=1)))
         for c in calls]
@@ -459,7 +692,10 @@ def phase_kernels_line(a, counts, gen, tier4: dict) -> None:
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
          "library_ms": sum(lib_ms),
          "shapes": f"tier-0 Gram + tier-1 Q pass at ({M_MAIN}, {N}) {MODE}",
-         "per_call_ms": {"gram": k_ms[0], "qpass": k_ms[1]},
+         "per_call_ms": {"gram": k_ms[0], "qpass": k_ms[1],
+                         "qpass_alias_q": alias_ms},
+         "alias_q_launches": inplace["counts"]["stream_gram_alias_q"],
+         "alias_q_max_abs_err": alias_err,
          "per_call_plain_ms": {"gram": p_ms[0], "qpass": p_ms[1]},
          "per_call_bound_ms": {"gram": bounds[0]["bound_ms"],
                                "qpass": bounds[1]["bound_ms"]},
@@ -472,6 +708,8 @@ def phase_kernels_line(a, counts, gen, tier4: dict) -> None:
          "bound_by": "bytes", "library_ms": r_lib,
          "shapes": f"({part.shape[0]}, {N}, {N}) float64 partials"},
         panel_entry(tier4),
+        probe_entry("read_reduce", bw_run["counts"], gen),
+        probe_entry("copy", bw_run["counts"], gen),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
 
@@ -488,12 +726,19 @@ def main() -> int:
     phase_build()
     phase_kernel_vs_plain(gen)
     phase_panel_vs_plain(gen)
+    phase_bw_vs_plain(gen)
     main_run = phase_main(gen)
     tier4 = phase_tier4(gen)
     phase_tiers(args.seed)
     phase_qr_wide(gen)
+    bw_run = phase_bw_sweep()
+    inplace = phase_inplace(gen)
+    phase_cholqr2(main_run["a"])
+    phase_mfu()
+    phase_qr_auto(gen)
     phase_gram_error(main_run["a"])
-    phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4)
+    phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4,
+                       bw_run, inplace)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -103,15 +103,61 @@ def test_ladder_bf16_matches_jax_tier():
     assert info["tier"] == int(np.asarray(infoj["tier"]).ravel()[0])
     assert q.dtype == r.dtype == torch.bfloat16
     assert validation.orthogonality(q) < auto._TOL[auto.M.BF16]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        auto.qr_auto_fused(torch.from_numpy(a), "fp32", fast_method="cholqr1",
-                           device="cpu")
+    # the non-fused methods take the same tier as in the JAX package
+    _, _, info = auto.qr_auto_fused(torch.from_numpy(a), "fp32",
+                                    fast_method="cholqr1",
+                                    mid_method="cholqr3", return_info=True,
+                                    device="cpu")
+    _, _, infoj = jauto.qr_auto_fused(jnp.asarray(a), "fp32",
+                                      fast_method="cholqr1",
+                                      mid_method="cholqr3", return_info=True)
+    assert info["tier"] == int(np.asarray(infoj["tier"]).ravel()[0]) == 1
+
+
+@pytest.mark.parametrize("kappa", [1, 1e3, 2 ** 18])
+def test_ladder_past_the_kernel_range_matches_jax_tier(kappa):
+    # n = 200 > 128: both ladders run modes.gram and the non-fused methods
+    m, n = 2048, 200
+    a = (np.random.default_rng(3).uniform(-1, 1, (m, n)).astype(np.float32)
+         if kappa == 1 else latms.rand_matrix_with_cond(9, m, n, kappa)[0])
+    q, r, info = auto.qr_auto_fused(torch.from_numpy(a), "bf16x6_cor",
+                                    return_info=True, device="cpu")
+    _, _, infoj = jauto.qr_auto_fused(jnp.asarray(a), "bf16x6_cor",
+                                      return_info=True)
+    assert info["tier"] == int(np.asarray(infoj["tier"]).ravel()[0])
+    assert validation.orthogonality(q) < 1e-5
+    assert validation.residual(a, q.numpy(), r.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("case", ["uniform", "kappa1e5", "zero_column"])
+def test_qr_auto_takes_jax_method(case):
+    m, n = 2048, 64
+    a = (latms.rand_matrix_with_cond(11, m, n, 1e5)[0] if case == "kappa1e5"
+         else np.random.default_rng(5).uniform(-1, 1, (m, n)).astype(
+             np.float32))
+    if case == "zero_column":
+        a[:, 33] = 0.0
+    # bf16x6_cor: at kappa = 1e5, past cholqr3's kappa <~ 2e4, its
+    # Cholesky breaks down in both packages and both retry with
+    # cholqr_iter.  (In fp32 mode the breakdown at that kappa hangs on the
+    # Grams' summation order: the packages part ways, measured.)
+    q, r, used = tsqr_tpu_torch.qr_auto(torch.from_numpy(a), "bf16x6_cor",
+                                        device="cpu")
+    _, _, used_j = jauto.qr_auto(jnp.asarray(a), "bf16x6_cor")
+    assert used == used_j == {"uniform": "cholqr3", "kappa1e5": "cholqr_iter",
+                              "zero_column": "blockqr_tsqr"}[case]
+    assert validation.orthogonality(q) < 1e-5
+    assert validation.residual(a, q, r) < 1e-5
 
 
 ENTRY_POINTS = {
     "qr_auto_fused": lambda a, **kw: tsqr_tpu_torch.qr_auto_fused(a, **kw),
     "fastqr": lambda a, **kw: tsqr_tpu_torch.fastqr(a, "fp32",
                                                     "cholqr1_fused", **kw),
+    "qr_auto": lambda a, **kw: tsqr_tpu_torch.qr_auto(a, **kw),
+    # on a copy: the caller's tensor holds Q afterwards
+    "fastqr_inplace": lambda a, **kw: tsqr_tpu_torch.fastqr_inplace(
+        a.clone(), "fp32", **kw),
     "tsqr": lambda a, **kw: tsqr_tpu_torch.tsqr(a, **kw),
     "qr": lambda a, **kw: tsqr_tpu_torch.qr(a, **kw),
     "panel_qr": lambda a, **kw: tsqr_tpu_torch.panel_qr(a, **kw),

@@ -175,14 +175,14 @@ def test_chol_r_returns_nan_on_indefinite():
 
 
 def test_unported_paths_raise():
+    # every method of the JAX package is ported now; what still raises is
+    # what the JAX package refuses too
     a = torch.from_numpy(_matrix(256, 64, 1))
-    for method in ("cholqr2", "cholqr2_fused", "rand_cholqr", "cholqr3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cholqr.fastqr(a, "fp32", method=method, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cholqr.cholqr1_fused(a, "fp32", inplace=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cholqr.cholqr1_fused(torch.zeros(512, 256), "fp32")
+    with pytest.raises(ValueError, match="unknown method"):
+        cholqr.fastqr(a, "fp32", method="cholqr4", device="cpu")
+    with pytest.raises(ValueError, match="fused-kernel range"):
+        cholqr.cholqr1_fused(torch.zeros(512, 256), "fp32",
+                             return_qgram=True)
     with pytest.raises(ValueError, match="m >= n"):
         cholqr.fastqr(a.T.contiguous(), "fp32", method="cholqr1_fused",
                       device="cpu")
@@ -190,3 +190,5 @@ def test_unported_paths_raise():
         cholqr.cholqr3_fused(a, "bf16", variant="compact")
     with pytest.raises(ValueError):
         cholqr.cholqr_iter_fused(a, "bf16_nocor")
+    with pytest.raises(ValueError, match="cheap-dot"):
+        cholqr.cholqr_iter(a, "bf16")

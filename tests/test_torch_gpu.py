@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from tsqr_tpu_torch.core import auto
-from tsqr_tpu_torch.ops import gram_stream, panel_kernel
+from tsqr_tpu_torch.ops import bw_probe, gram_stream, panel_kernel
 from tsqr_tpu_torch.utils import latms, validation
 
 pytestmark = pytest.mark.gpu
@@ -62,6 +62,22 @@ def test_kernel_matches_plain_version(card, mode, n):
     # a Gram-only launch derives the same x bit for bit
     p1 = gram_stream.stream(a, *dots, residual=(False, True), gram_mode=mode)
     assert torch.equal(p1, p)
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+def test_alias_q_writes_q_over_a(card, io):
+    a, rinv, delta = _inputs(card, 1001)
+    a = a.to(io)
+    mode = "bf16x6_cor" if io == torch.float32 else "bf16"
+    dots = ((rinv, delta), (mode, "bf16x3_cor"))
+    kw = dict(residual=(False, True), write_q=True, gram_mode=mode)
+    q0, p0 = gram_stream.stream(a, *dots, **kw)
+    a1 = a.clone()
+    q1, p1 = gram_stream.stream(a1, *dots, alias_q=True, **kw)
+    assert q1.data_ptr() == a1.data_ptr() and q1.dtype == io
+    assert torch.equal(q1, q0) and torch.equal(a1, q0) and torch.equal(p1, p0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gram_stream.stream(a.T, (rinv,), (mode,), write_q=True, alias_q=True)
 
 
 def test_bf16_io_and_chained_dots(card):
@@ -141,3 +157,30 @@ def test_ladder_tiers_on_card(card):
             assert panel_kernel.LAUNCHES == launches + 2
         assert validation.orthogonality_accurate(q) < 1e-5
         assert validation.residual_accurate(a, q, r) < 1e-5
+
+
+@pytest.mark.parametrize("rows_per_cta", [8, 4096])
+@pytest.mark.parametrize("m,n", [(1 << 16, 128), (1000, 100), (336, 7)])
+def test_probes_match_plain_versions(card, m, n, rows_per_cta):
+    a = torch.from_numpy(np.random.default_rng(m + n).uniform(
+        -1, 1, (m, n)).astype(np.float32)).to(card)
+    launches = bw_probe.READ_LAUNCHES, bw_probe.COPY_LAUNCHES
+    s = bw_probe.read_reduce(a, rows_per_cta)
+    y = bw_probe.copy(a, rows_per_cta)
+    assert (bw_probe.READ_LAUNCHES, bw_probe.COPY_LAUNCHES) == (
+        launches[0] + 1, launches[1] + 1)
+    # both sum in float64, in other orders: the float32 results differ by
+    # at most one rounding
+    s0 = bw_probe.read_reduce_reference(a)
+    assert _rel(s, s0) <= 1e-7
+    assert torch.equal(y, bw_probe.copy_reference(a))
+
+
+def test_probes_raise_on_what_they_do_not_take(card):
+    a = torch.zeros(1 << 10, 128, device=card)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bw_probe.read_reduce(a[:1001])
+    with pytest.raises(ValueError, match="aligned"):
+        bw_probe.copy(a.view(-1)[1:1 + 64 * 128].view(64, 128))
+    with pytest.raises(ValueError, match="rows_per_cta"):
+        bw_probe.copy(a, rows_per_cta=12)

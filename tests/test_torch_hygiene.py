@@ -49,7 +49,13 @@ def test_scan_sees_the_whole_port():
                  "tsqr_tpu_torch/core/tsqr.py",
                  "tsqr_tpu_torch/core/blockqr.py",
                  "tsqr_tpu_torch/utils/device.py",
-                 "tsqr_tpu_torch/core/auto.py", "chip_smoke.py"):
+                 "tsqr_tpu_torch/core/auto.py",
+                 "tsqr_tpu_torch/ops/bw_probe.py",
+                 "tsqr_tpu_torch/harness/bw.py",
+                 "tsqr_tpu_torch/harness/mfu.py",
+                 "tsqr_tpu_torch/harness/speed.py",
+                 "tsqr_tpu_torch/harness/main.py",
+                 "tsqr_tpu_torch/utils/status.py", "chip_smoke.py"):
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("tsqr_tpu.modes")
     assert not _forbidden("tsqr_tpu_torch.modes")

@@ -1,10 +1,12 @@
 """tsqr_tpu_torch: the tall-skinny QR library of ``tsqr_tpu`` in PyTorch,
 with its kernels hand-written in CUDA for the NVIDIA H100.
 
-Entry points (``qr_auto_fused``, ``fastqr``, ``tsqr``, ``qr``,
-``panel_qr``) run on the CUDA card: an input elsewhere is moved there,
-and without a card they raise ``RuntimeError``.  ``device="cpu"`` is
-the explicit request for the CPU, where every kernel runs its plain
+Entry points (``qr_auto_fused``, ``qr_auto``, ``fastqr``,
+``fastqr_inplace``, ``tsqr``, ``qr``, ``panel_qr``, ``qr_packed``) run
+on the CUDA card: an input elsewhere is moved there (``fastqr_inplace``
+raises instead, since it writes Q over the caller's tensor), and
+without a card they raise ``RuntimeError``.  ``device="cpu"`` is the
+explicit request for the CPU, where every kernel runs its plain
 PyTorch version.
 """
 
@@ -17,11 +19,13 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from tsqr_tpu_torch.modes import ComputeMode  # noqa: E402
-from tsqr_tpu_torch.core.auto import qr_auto_fused  # noqa: E402
+from tsqr_tpu_torch.core.auto import qr_auto, qr_auto_fused  # noqa: E402
 from tsqr_tpu_torch.core.blockqr import qr  # noqa: E402
-from tsqr_tpu_torch.core.cholqr import fastqr  # noqa: E402
+from tsqr_tpu_torch.core.cholqr import (  # noqa: E402
+    fastqr, fastqr_inplace, pack_panel, qr_packed, unpack_panel)
 from tsqr_tpu_torch.core.tsqr import tsqr  # noqa: E402
 from tsqr_tpu_torch.ops.panel_qr import panel_qr  # noqa: E402
 
-__all__ = ["ComputeMode", "qr_auto_fused", "fastqr", "tsqr", "qr",
-           "panel_qr"]
+__all__ = ["ComputeMode", "qr_auto_fused", "qr_auto", "fastqr",
+           "fastqr_inplace", "tsqr", "qr", "panel_qr", "pack_panel",
+           "qr_packed", "unpack_panel"]

@@ -1,11 +1,14 @@
-"""The predictive QR ladder: tiers 0-3 on the stream kernel, tier 4 on
-the Householder tree.
+"""Self-validating QR: ``qr_auto`` (try, measure, fall back) and
+``qr_auto_fused``, the predictive ladder.
 
-Counterpart of ``qr_auto_fused`` in ``tsqr_tpu/core/auto.py``.  Each
-``lax.cond`` of the reference is a Python branch on one synced device
-scalar; tiers 0-3 always run the fused pipelines over
-``ops.gram_stream.stream``, and tier 4 is ``core.blockqr.qr`` over the
-TSQR tree, whose leaf is the panel kernel (``ops.panel_kernel``).
+Counterpart of ``tsqr_tpu/core/auto.py``.  Each ``lax.cond`` of the
+reference is a Python branch on one synced device scalar.  Within the
+stream kernel's range (n <= 128) and with fused methods, tiers 0-3 run
+the fused pipelines over ``ops.gram_stream.stream``; past it, or with
+non-fused methods, they run the plain products of ``modes.gram`` and
+``Policy.mm`` and the non-fused methods, as the reference does off its
+kernel's range.  Tier 4 is ``core.blockqr.qr`` over the TSQR tree, whose
+leaf is the panel kernel (``ops.panel_kernel``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from tsqr_tpu_torch.core import blockqr, cholqr
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.ops import gram_stream
 from tsqr_tpu_torch.utils import device as _device
+from tsqr_tpu_torch.utils import validation
 
 Tensor = torch.Tensor
 
@@ -57,8 +61,55 @@ def _orth_of_gram(g: Tensor) -> Tensor:
 
 def _gate_orth(q: Tensor) -> Tensor:
     """Orthogonality of Q for the ladder's gates: the Kahan streaming
-    Gram at bf16x6_cor grade, on either device."""
-    return _orth_of_gram(gram_stream.gram_stream(q, "bf16x6_cor"))
+    Gram at bf16x6_cor grade within the kernel's range, a float64 Gram
+    past it."""
+    if q.shape[1] <= gram_stream.N_MAX:
+        return _orth_of_gram(gram_stream.gram_stream(q, "bf16x6_cor"))
+    q64 = q.to(torch.float64)
+    return _orth_of_gram(q64.T @ q64)
+
+
+def _orth_device(q: Tensor) -> float:
+    """||Q^T Q - I||_F / sqrt(n) from a float32 Gram on Q's device."""
+    q32 = q.to(torch.float32)
+    return float(_orth_of_gram(modes.mm_fp32(q32.T, q32)))
+
+
+def qr_auto(a: Tensor, mode="fp32", fast_method: str = "cholqr3",
+            device=None, **qr_kw) -> tuple[Tensor, Tensor, str]:
+    """QR with automatic fast-path / fallback selection: returns
+    (Q, R, method_used).
+
+    For n <= 1024 it runs ``fastqr(method=fast_method)`` and measures
+    Q's orthogonality (a float32 Gram at m <= 2^16, float64 above); if
+    it misses the mode's tolerance, the corrected/fp32 modes retry with
+    the iterated shifted CholeskyQR.  Last comes BlockQR over the
+    Householder tree with CGS2 (``qr_kw`` go to :func:`blockqr.qr`).
+    Runs on the card unless ``device="cpu"``."""
+    policy = modes.resolve(mode)
+    a = _device.place(a, device, "qr_auto")
+    m, n = a.shape
+    tol = _TOL.get(policy.mode, 1e-4)
+
+    def orth(q):
+        if m <= (1 << 16):
+            return _orth_device(q)
+        return validation.orthogonality_accurate(q)
+
+    if n <= 1024:
+        q, r = cholqr.fastqr(a, mode, method=fast_method, device=a.device)
+        o = orth(q)
+        if math.isfinite(o) and o < tol:
+            return q, r, fast_method
+        if policy.mode not in cholqr._CHEAP_DOT:
+            q, r = cholqr.fastqr(a, mode, method="cholqr_iter",
+                                 device=a.device)
+            o = orth(q)
+            if math.isfinite(o) and o < tol:
+                return q, r, "cholqr_iter"
+    qr_kw.setdefault("reorth", True)
+    q, r = blockqr.qr(a, mode, device=a.device, **qr_kw)
+    return q, r, "blockqr_tsqr"
 
 
 def qr_auto_fused(a: Tensor, mode="fp32",
@@ -75,17 +126,20 @@ def qr_auto_fused(a: Tensor, mode="fp32",
                   device=None):
     """Self-validating QR: the predictive ladder.
 
-    Tier 0: stream G = A^T A, Cholesky it, and bound kappa(A)^2 from
-    above.  Tier 1: if kappa2_est eps_mode safety < tol, finish the fast
-    method (for cholqr1: one Q-writing pass reusing R1).  Tier 2: the
-    compact shifted CholeskyQR3 reusing G, gated by the Q-Gram of its last
-    pass.  Tier 3 (corrected/fp32 modes): the iterated shifted
-    CholeskyQR, gated the same way.  Tier 4 (unconditional): BlockQR
-    over the Householder tree with CGS2 (``reorth``), whose leaf is the
-    panel kernel: ``impl``, ``leaf_rows`` and ``fanin`` go to
+    Tier 0: G = A^T A (the stream kernel, or ``modes.gram`` off its
+    range), its Cholesky, and an upper bound on kappa(A)^2.  Tier 1: if
+    kappa2_est eps_mode safety < tol, finish the fast method (for cholqr1:
+    one Q-writing pass reusing R1).  Tier 2: ``mid_method`` (the compact
+    shifted CholeskyQR3 reusing G and gated by the Q-Gram of its last
+    pass, or any method gated by Q's measured orthogonality).  Tier 3
+    (corrected/fp32 modes): the iterated shifted CholeskyQR reusing G,
+    gated the same way.  Tier 4 (unconditional): BlockQR over the
+    Householder tree with CGS2 (``reorth``), whose leaf is the panel
+    kernel: ``impl``, ``leaf_rows`` and ``fanin`` go to
     :func:`blockqr.qr`, and None takes the tree's defaults (the kernel
     leaf, the largest tile its shared memory holds at this n, fan-in
-    ``tsqr.DEFAULT_FANIN``).
+    ``tsqr.DEFAULT_FANIN``).  The fused pipelines run where the method
+    is fused and n <= 128; elsewhere their non-fused siblings.
 
     Runs on the card unless ``device="cpu"``.
 
@@ -99,16 +153,15 @@ def qr_auto_fused(a: Tensor, mode="fp32",
     mname = policy.mode.value
     io = policy.io_dtype
     n = a.shape[1]
-    if not fast_method.endswith("_fused") or (
-            mid_method is not None and not mid_method.endswith("_fused")):
-        raise NotImplementedError(
-            "the ladder's non-fused methods are not ported yet — "
-            "ROADMAP A.3")
-    cholqr._check_range(a, policy, "qr_auto_fused")
+    in_range = n <= cholqr._fused_n_max(policy)
+    fused = fast_method.endswith("_fused") and in_range
     a32 = cholqr._as_stream_input(a)
 
     # ---- tier 0: shared Gram + predictive kappa^2 bound ----
-    g = gram_stream.gram_stream(a32, mname)
+    if fused:
+        g = gram_stream.gram_stream(a32, mname)
+    else:
+        g = modes.gram(a32.to(torch.float32), policy)
     g = (g + g.T) * 0.5
     r1 = cholqr._chol_r(g, shift=None)
     rinv1 = cholqr._rinv(r1)
@@ -126,11 +179,15 @@ def qr_auto_fused(a: Tensor, mode="fp32",
 
     if ok1:
         if base == "cholqr1":
-            q = gram_stream.stream(a32, (rinv1,), (mname,), write_q=True,
-                                   out_dtype=io)
+            if fused:
+                q = gram_stream.stream(a32, (rinv1,), (mname,), write_q=True,
+                                       out_dtype=io)
+            else:
+                q = policy.mm(a32.to(torch.float32), rinv1)
             return done(q, r1, 1)
-        q, r = cholqr.fastqr(a, mode, method=fast_method,
-                             variant=fast_variant, device=a.device)
+        fm = fast_method if fused else base
+        q, r = cholqr.fastqr(a, mode, method=fm, variant=fast_variant,
+                             device=a.device)
         return done(q, r, 1)
 
     def tier4():
@@ -144,17 +201,19 @@ def qr_auto_fused(a: Tensor, mode="fp32",
         return tier4()
 
     # ---- tier 2: robust shifted CholeskyQR3 ----
-    if (mid_method == "cholqr3_fused" and mid_variant == "compact"
+    mid_fused = mid_method.endswith("_fused") and in_range
+    if (mid_fused and mid_method == "cholqr3_fused"
+            and mid_variant == "compact"
             and policy.mode not in cholqr._CHEAP_DOT):
         q_m, r_m, gq = cholqr.cholqr3_fused(a32, mode, variant="compact",
                                             g1=g, return_qgram=True)
         orth_m = _orth_of_gram(gq)
     else:
         mv = mid_variant if policy.mode not in cholqr._CHEAP_DOT else "safe"
-        if mid_method != "cholqr3_fused":
-            mv = "safe"
-        q_m, r_m = cholqr.fastqr(a, mode, method=mid_method, variant=mv,
-                                 device=a.device)
+        mm = mid_method if mid_fused else mid_method.removesuffix("_fused")
+        q_m, r_m = cholqr.fastqr(a, mode, method=mm,
+                                 variant=mv if mm.endswith("_fused")
+                                 else "safe", device=a.device)
         orth_m = _gate_orth(q_m)
     if bool(orth_m < tol):
         return done(q_m, r_m, 2)
@@ -162,8 +221,13 @@ def qr_auto_fused(a: Tensor, mode="fp32",
         return tier4()
 
     # ---- tier 3: iterated shifted CholeskyQR ----
-    q_i, r_i, gq_i = cholqr.cholqr_iter_fused(a32, mode, g1=g,
-                                              return_qgram=True)
-    if bool(_orth_of_gram(gq_i) < tol):
+    if in_range:
+        q_i, r_i, gq_i = cholqr.cholqr_iter_fused(a32, mode, g1=g,
+                                                  return_qgram=True)
+        orth_i = _orth_of_gram(gq_i)
+    else:
+        q_i, r_i = cholqr.cholqr_iter(a, mode, g1=g)
+        orth_i = _gate_orth(q_i)
+    if bool(orth_i < tol):
         return done(q_i, r_i, 3)
     return tier4()

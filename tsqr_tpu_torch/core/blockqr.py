@@ -90,9 +90,8 @@ def qr(a: Tensor,
     R (n, n)).  Runs on the card unless ``device="cpu"``.
 
     panel_method: "tsqr" (the Householder tree; ``leaf_rows``,
-    ``fanin``, ``impl`` and ``leaf_qr`` go to :func:`tsqr`) or one of the
-    ported fused CholeskyQR methods (``cholqr1_fused``,
-    ``cholqr3_fused``, ``cholqr_iter_fused``; panels of n <= 128).
+    ``fanin``, ``impl`` and ``leaf_qr`` go to :func:`tsqr`) or a
+    CholeskyQR method of ``cholqr._METHODS``, at its default variant.
     loop: "auto" | "unroll" | "fori" (see the module docstring); "auto"
     unrolls."""
     policy = modes.resolve(mode)
@@ -114,9 +113,6 @@ def qr(a: Tensor,
     elif panel_method in cholqr._METHODS:
         def _tsqr(x):
             return cholqr._METHODS[panel_method](x, fp32_policy)
-    elif panel_method in cholqr._NOT_PORTED_METHODS:
-        raise NotImplementedError(
-            f"panel_method {panel_method!r} {cholqr._NOT_PORTED}")
     else:
         raise ValueError(f"unknown panel_method {panel_method!r}")
 

@@ -1,15 +1,24 @@
-"""CholeskyQR pipelines on the streaming kernel: the methods of the
-predictive ladder's tiers 1-3.
+"""CholeskyQR: the tall-skinny QR methods built from Gram matrices.
 
-Counterpart of ``tsqr_tpu/core/cholqr.py``, restricted to what the ladder
-calls: ``cholqr1_fused``, ``cholqr3_fused`` and ``cholqr_iter_fused`` with
-their helpers.  Every m-scale pass goes through
-``ops.gram_stream.stream``.  Each ``lax.while_loop`` of the reference is a
-host loop that syncs once per pass.
+Counterpart of ``tsqr_tpu/core/cholqr.py``.  Two families:
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the non-fused ``cholqr1``/``cholqr3``/``cholqr_iter``,
-``cholqr2``/``cholqr2_fused``, ``rand_cholqr``, and ``inplace``.
+* the fused methods (``cholqr1_fused``, ``cholqr2_fused``,
+  ``cholqr3_fused``, ``cholqr_iter_fused``): every m-scale pass goes
+  through ``ops.gram_stream.stream``, the stream kernel, for n <= 128
+  (``_fused_n_max``); past it each delegates to its non-fused sibling,
+  as the reference does past its own kernel range;
+* the non-fused methods (``cholqr1``, ``cholqr2``, ``cholqr3``,
+  ``cholqr_iter``, ``rand_cholqr``): their products are the split
+  products of ``modes.gram`` and ``Policy.mm``, plain float32 PyTorch
+  matmuls of bf16-exact parts, as the reference leaves them to XLA.
+
+Each ``lax.while_loop`` of the reference is a host loop that syncs once
+per pass.  ``inplace=True`` writes Q over the caller's A (``alias_q`` of
+the stream kernel); PyTorch has no buffer donation, so the caller's
+tensor holds Q afterwards.  The reference's 128-lane sublane packing of
+narrow panels is a TPU layout rule and is not ported: ``pack_panel``,
+``unpack_panel`` and ``qr_packed`` keep its API over the unpacked
+methods.
 """
 
 from __future__ import annotations
@@ -26,7 +35,6 @@ from tsqr_tpu_torch.utils import device as _device
 Tensor = torch.Tensor
 
 _EPS32 = 6.0e-8
-_NOT_PORTED = "is not ported yet — ROADMAP A.3"
 
 
 def _chol_r(g: Tensor, shift: float | Tensor | None = 0.0) -> Tensor:
@@ -56,18 +64,39 @@ def _fused_n_max(policy: modes.Policy) -> int:
     return gram_stream.N_MAX
 
 
-def _check_range(a: Tensor, policy: modes.Policy, what: str) -> None:
-    m, n = a.shape
-    if not 1 <= n <= _fused_n_max(policy):
-        raise NotImplementedError(
-            f"{what} at n={n}: the stream kernel takes n <= "
-            f"{_fused_n_max(policy)}, and the non-fused methods beyond it "
-            f"{_NOT_PORTED}")
+def _in_fused_range(a: Tensor, policy: modes.Policy) -> bool:
+    return 1 <= a.shape[1] <= _fused_n_max(policy)
+
+
+def _range_error(what: str, policy: modes.Policy, n: int) -> ValueError:
+    """What a fused method raises for an option its non-fused sibling
+    cannot honour (``what`` ends in its verb: "inplace requires")."""
+    return ValueError(f"{what} n <= {_fused_n_max(policy)} (the "
+                      f"fused-kernel range), got n={n}")
+
+
+def _check_inplace(a: Tensor, policy: modes.Policy) -> None:
+    if policy.io_dtype != a.dtype:
+        raise ValueError(f"inplace requires io_dtype == a.dtype, got "
+                         f"{policy.io_dtype} vs {a.dtype}")
 
 
 def _as_stream_input(a: Tensor) -> Tensor:
     return a if a.dtype in (torch.bfloat16, torch.float32) \
         else a.to(torch.float32)
+
+
+def _shift_value(g: Tensor, m: int, n: int) -> Tensor:
+    """Cholesky-safeguard shift for a Gram accumulated without
+    compensation, whose error is ~sqrt(m) eps ||G||:
+    s = 11 (sqrt(m) n + n (n + 1)) eps ||G||_F, (1, 1)-shaped."""
+    norm = torch.sqrt(torch.sum(g * g)).reshape(1, 1)
+    return (11.0 * (math.sqrt(m) * n + n * (n + 1)) * _EPS32) * norm
+
+
+def _q_pass(a: Tensor, r: Tensor, mm: Callable) -> Tensor:
+    """Q = A R^-1 as one product with the explicit (n, n) inverse."""
+    return mm(a, _rinv(r))
 
 
 def _shift_value_fused(g: Tensor, n: int, chunk: int) -> Tensor:
@@ -149,29 +178,172 @@ def _k2_of_gram(g: Tensor) -> Tensor:
     return (_psd_norm2_bound(g) * _psd_norm2_bound(minv)).reshape(1, 1)
 
 
-# ---- the methods -------------------------------------------------------------
+# ---- the non-fused methods -------------------------------------------------
+
+def cholqr1(a: Tensor, mode="fp32") -> tuple[Tensor, Tensor]:
+    """Single-pass CholeskyQR: orthogonality ~ kappa(A)^2 eps_mode."""
+    policy = modes.resolve(mode)
+    a32 = a.to(torch.float32)
+    r = _chol_r(modes.gram(a32, policy))
+    q = _q_pass(a32, r, policy.mm)
+    return q.to(policy.io_dtype), torch.triu(r).to(policy.io_dtype)
+
+
+def _cholqr2_core(a32: Tensor, policy: modes.Policy) -> tuple[Tensor, Tensor]:
+    """Two CholeskyQR iterations: (Q, R) in float32."""
+    r1 = _chol_r(modes.gram(a32, policy))
+    q1 = _q_pass(a32, r1, policy.mm)
+    r2 = _chol_r(modes.gram(q1, policy))
+    q = _q_pass(q1, r2, policy.mm)
+    return q, torch.triu(modes.mm_fp32(r2, r1))
+
+
+def cholqr2(a: Tensor, mode="fp32") -> tuple[Tensor, Tensor]:
+    """CholeskyQR2: float32-grade orthogonality for kappa(A) <~ 4e3."""
+    policy = modes.resolve(mode)
+    q, r = _cholqr2_core(a.to(torch.float32), policy)
+    return q.to(policy.io_dtype), r.to(policy.io_dtype)
+
+
+def cholqr3(a: Tensor, mode="fp32") -> tuple[Tensor, Tensor]:
+    """Shifted CholeskyQR3: a shifted first pass (which cannot break
+    down), then CholeskyQR2; kappa(A) <~ 2e4 in float32."""
+    policy = modes.resolve(mode)
+    a32 = a.to(torch.float32)
+    m, n = a32.shape
+    g = modes.gram(a32, policy)
+    r1 = _chol_r(g, shift=_shift_value(g, m, n))
+    q2, r2 = _cholqr2_core(_q_pass(a32, r1, policy.mm), policy)
+    r = torch.triu(modes.mm_fp32(r2, r1))
+    return q2.to(policy.io_dtype), r.to(policy.io_dtype)
+
+
+def pack_panel(a: Tensor) -> Tensor:
+    """The reference's packed (ceil(m/p), p n) view of a narrow (m, n <=
+    64) panel, p = 128 // n: row r holds rows p r .. p r + p - 1 of A,
+    zero rows below m.  On the card the packing buys nothing (global
+    memory has no 128-lane padding); it is kept for the API."""
+    m, n = a.shape
+    if n > 64:
+        raise ValueError(f"pack_panel wants n <= 64, got n={n}")
+    p = 128 // n
+    a32 = a.to(torch.float32)
+    m_pad = -(-m // p) * p
+    if m_pad != m:
+        a32 = torch.cat([a32, a32.new_zeros(m_pad - m, n)])
+    return a32.reshape(m_pad // p, p * n)
+
+
+def unpack_panel(qp: Tensor, m: int, n: int) -> Tensor:
+    """Inverse of :func:`pack_panel`: (rows, p n) -> (m, n)."""
+    return qp.reshape(-1, n)[:m]
+
+
+def qr_packed(ap: Tensor, n: int, mode="fp32",
+              method: str = "cholqr2") -> tuple[Tensor, Tensor]:
+    """Thin QR of a packed panel (the view of :func:`pack_panel`), packed
+    IO: returns (Q packed the same way, R (n, n)).  ``method`` is
+    "cholqr1", "cholqr2" or "cholqr3", run on the unpacked rows; the zero
+    pad rows add nothing to any Gram and stay zero in Q."""
+    rows, pn = ap.shape
+    if pn % n:
+        raise ValueError(f"packed width {pn} not a multiple of n={n}")
+    fns = {"cholqr1": cholqr1, "cholqr2": cholqr2, "cholqr3": cholqr3}
+    if method not in fns:
+        raise ValueError(f"qr_packed: unknown method {method!r}")
+    q, r = fns[method](ap.reshape(rows * (pn // n), n), mode)
+    return q.reshape(rows, pn), r
+
+
+# ---- the fused methods -------------------------------------------------------
 
 def cholqr1_fused(a: Tensor, mode="bf16", inplace: bool = False,
                   return_qgram: bool = False):
     """Single-pass CholeskyQR: one read of A (Gram), one read and one
     write (Q pass).  ``return_qgram=True`` also returns G = Q^T Q,
-    accumulated in the Q-writing pass: (q, r, g)."""
+    accumulated in the Q-writing pass: (q, r, g).  ``inplace=True``
+    writes Q over A (requires io_dtype == a.dtype)."""
     policy = modes.resolve(mode)
     if inplace:
-        raise NotImplementedError(f"inplace {_NOT_PORTED}")
-    _check_range(a, policy, "cholqr1_fused")
+        _check_inplace(a, policy)
+    if not _in_fused_range(a, policy):
+        if inplace or return_qgram:
+            raise _range_error("inplace/return_qgram require", policy,
+                               a.shape[1])
+        return cholqr1(a, mode)
     mname = policy.mode.value
     a = _as_stream_input(a)
     g = gram_stream.gram_stream(a, mname)
     r = _chol_r(g)
     out = gram_stream.stream(a, (_rinv(r),), (mname,), write_q=True,
                              gram_mode=mname if return_qgram else None,
-                             out_dtype=policy.io_dtype)
+                             out_dtype=policy.io_dtype, alias_q=inplace)
     rt = torch.triu(r).to(policy.io_dtype)
     if return_qgram:
         q, p = out
         return q, rt, p + p.T
     return out, rt
+
+
+def cholqr2_fused(a: Tensor, mode="fp32", variant: str = "safe",
+                  inplace: bool = False) -> tuple[Tensor, Tensor]:
+    """CholeskyQR2 on the stream kernel.
+
+    ``variant``: "safe" (full grade throughout; kappa <~ 4e3), "fast"
+    (the second factor by the Delta trick; kappa <~ 500), "fastest"
+    (also Gram #1 in bf16; kappa <~ 10), "compact" (Q1 is never written:
+    the final pass re-derives it from A and applies the Delta correction;
+    kappa <~ 500) and "turbo" (fastest + compact; kappa <~ 10).  Every
+    variant keeps a float32-grade residual.  ``inplace=True`` (compact and
+    turbo, the pipelines whose last pass streams A itself) writes Q over
+    A."""
+    policy = modes.resolve(mode)
+    if variant not in ("safe", "fast", "fastest", "compact", "turbo"):
+        raise ValueError(f"cholqr2_fused: unknown variant {variant!r}")
+    if inplace:
+        if variant not in ("compact", "turbo"):
+            raise ValueError("inplace requires the recompute pipeline "
+                             "(variant 'compact' or 'turbo')")
+        _check_inplace(a, policy)
+    if not _in_fused_range(a, policy):
+        if inplace:
+            raise _range_error("inplace requires", policy, a.shape[1])
+        if variant in ("compact", "turbo"):
+            # the non-fused sibling writes Q1: no A + Q-only footprint
+            raise _range_error(f"variant {variant!r} requires", policy,
+                               a.shape[1])
+        return cholqr2(a, mode)
+
+    mname = policy.mode.value
+    io = policy.io_dtype
+    a = _as_stream_input(a)
+    stream = gram_stream.stream
+    g = gram_stream.gram_stream(
+        a, "bf16" if variant in ("fastest", "turbo") else mname)
+    r1 = _chol_r(g)
+    dmode = _DELTA_MODE.get(policy.mode)
+    if policy.mode in _CHEAP_DOT or variant in ("compact", "turbo"):
+        # recompute pipeline: Q1 is re-derived from A, never written
+        p2 = stream(a, (_rinv(r1),), (mname,), gram_mode=mname)
+        r2 = _chol_r(p2 + p2.T)
+        if variant in ("compact", "turbo") and dmode is not None:
+            q = stream(a, (_rinv(r1), _delta(r2)), (mname, dmode),
+                       residual=(False, True), write_q=True, out_dtype=io,
+                       alias_q=inplace)
+        else:
+            q = stream(a, (_rinv(r1), _rinv(r2)), (mname, mname),
+                       write_q=True, out_dtype=io, alias_q=inplace)
+    else:
+        q1, g2 = gram_stream.qpass_stream(a, _rinv(r1), mname)
+        r2 = _chol_r(g2)
+        if variant != "safe" and dmode is not None:
+            q = stream(q1, (_delta(r2),), (dmode,), residual=(True,),
+                       write_q=True, out_dtype=io)
+        else:
+            q = stream(q1, (_rinv(r2),), (mname,), write_q=True,
+                       out_dtype=io)
+    r = torch.triu(modes.mm_fp32(r2, r1))
+    return q.to(io), r.to(io)
 
 
 def cholqr3_fused(a: Tensor, mode="fp32", variant: str = "safe",
@@ -188,7 +360,9 @@ def cholqr3_fused(a: Tensor, mode="fp32", variant: str = "safe",
 
     Ladder hooks (compact only): ``g1`` is a precomputed full-grade Gram
     of ``a`` (skips pass 1); ``return_qgram=True`` also returns G = Q^T Q
-    from the final pass: (q, r, gq)."""
+    from the final pass: (q, r, gq).  ``inplace=True`` (compact only)
+    writes Q over A.  Past the kernel's range the method delegates to
+    :func:`cholqr3`, and compact, its hooks and ``inplace`` raise."""
     policy = modes.resolve(mode)
     if variant not in ("safe", "fast", "fastest", "compact"):
         raise ValueError(f"cholqr3_fused: unknown variant {variant!r}")
@@ -201,8 +375,16 @@ def cholqr3_fused(a: Tensor, mode="fp32", variant: str = "safe",
             "pipeline under every variant; 'compact' applies to the "
             "corrected/fp32 modes")
     if inplace:
-        raise NotImplementedError(f"inplace {_NOT_PORTED}")
-    _check_range(a, policy, "cholqr3_fused")
+        if variant != "compact":
+            raise ValueError("inplace requires the recompute pipeline "
+                             "(variant 'compact')")
+        _check_inplace(a, policy)
+    if not _in_fused_range(a, policy):
+        if inplace or g1 is not None or return_qgram or variant == "compact":
+            # the non-fused sibling writes every intermediate panel
+            raise _range_error("variant 'compact' (and its ladder hooks) "
+                               "requires", policy, a.shape[1])
+        return cholqr3(a, mode)
 
     mname = policy.mode.value
     io = policy.io_dtype
@@ -227,10 +409,11 @@ def cholqr3_fused(a: Tensor, mode="fp32", variant: str = "safe",
         if dmode is not None:
             out = stream(a, (f2, _delta(r3)), (mname, dmode),
                          residual=(False, True), write_q=True, gram_mode=qg,
-                         out_dtype=io)
+                         out_dtype=io, alias_q=inplace)
         else:
             out = stream(a, (_compose(f2, _rinv(r3)),), (mname,),
-                         write_q=True, gram_mode=qg, out_dtype=io)
+                         write_q=True, gram_mode=qg, out_dtype=io,
+                         alias_q=inplace)
         r = torch.triu(modes.mm_fp32(r3, modes.mm_fp32(r2, r1))).to(io)
         if return_qgram:
             q, p = out
@@ -309,19 +492,57 @@ def _iter_shifted_loop(g0: Tensor, gram_of_f: Callable, shift_of_g: Callable,
         k2, orthg = _k2_of_gram(g), orth_of(g)
 
 
+def cholqr_iter(a: Tensor, mode="fp32", g1: Tensor | None = None,
+                max_shifted: int = 16) -> tuple[Tensor, Tensor]:
+    """Iterated shifted CholeskyQR on plain products: Gram passes, shifted
+    while the conditioning demands it, until the measured orthogonality
+    of X = A F crosses ``_ORTH_EXIT``; then one unshifted factor of the
+    exit Gram applied to the recomputed X.  Corrected/fp32 modes only.
+    ``g1`` is a precomputed full-grade Gram of ``a``."""
+    policy = modes.resolve(mode)
+    if policy.mode in _CHEAP_DOT:
+        raise ValueError(
+            "cholqr_iter: the cheap-dot modes' Gram noise floor defeats "
+            "the shifted-contraction analysis; use the corrected/fp32 "
+            f"modes (got {policy.mode.value!r})")
+    a32 = a.to(torch.float32)
+    m, n = a32.shape
+
+    def gram_of_f(f):
+        g = modes.gram(policy.mm(a32, f), policy)
+        return (g + g.T) * 0.5
+
+    g0 = modes.gram(a32, policy) if g1 is None else g1.to(torch.float32)
+    g0 = (g0 + g0.T) * 0.5
+    f, rt, g, _, _ = _iter_shifted_loop(
+        g0, gram_of_f, lambda gg: _shift_value(gg, m, n), n,
+        _iter_polish_k2(policy), max_shifted)
+    # the tail factors the exit Gram and applies it to the recomputed
+    # x = A F, bit for bit the x that Gram measured
+    r2 = _chol_r(g)
+    rt = modes.mm_fp32(r2, rt)
+    q = _q_pass(policy.mm(a32, f), r2, policy.mm)
+    return q.to(policy.io_dtype), torch.triu(rt).to(policy.io_dtype)
+
+
 def cholqr_iter_fused(a: Tensor, mode="fp32", g1: Tensor | None = None,
                       return_qgram: bool = False, max_shifted: int = 16):
     """Iterated shifted CholeskyQR on the stream kernel: each loop pass is
     one read of A (apply the composed F, accumulate the Gram of A F); the
     tail is one Q-writing pass applying the exit factor by the Delta
     trick.  ``g1`` is a precomputed Gram of ``a``; ``return_qgram=True``
-    returns (q, r, gq) with gq = Q^T Q from the tail pass."""
+    returns (q, r, gq) with gq = Q^T Q from the tail pass.  Past the
+    kernel's range it delegates to :func:`cholqr_iter`."""
     policy = modes.resolve(mode)
     if policy.mode in _CHEAP_DOT:
         raise ValueError(
             "cholqr_iter_fused: corrected/fp32 modes only, got "
             f"{policy.mode.value!r}")
-    _check_range(a, policy, "cholqr_iter_fused")
+    if not _in_fused_range(a, policy):
+        if g1 is not None or return_qgram:
+            raise _range_error("g1/return_qgram require", policy, a.shape[1])
+        return cholqr_iter(a, mode, max_shifted=max_shifted)
+
     mname = policy.mode.value
     io = policy.io_dtype
     a = _as_stream_input(a)
@@ -357,28 +578,118 @@ def cholqr_iter_fused(a: Tensor, mode="fp32", g1: Tensor | None = None,
     return out, r
 
 
-_METHODS = {"cholqr1_fused": cholqr1_fused, "cholqr3_fused": cholqr3_fused,
-            "cholqr_iter_fused": cholqr_iter_fused}
-_NOT_PORTED_METHODS = ("cholqr1", "cholqr2", "cholqr3", "cholqr2_fused",
-                       "cholqr_iter", "rand_cholqr")
+# ---- randomized (sketch-preconditioned) CholeskyQR --------------------------
+
+def sketch_gaussian(a: Tensor, gen: torch.Generator, l: int,
+                    chunk_rows: int = 1 << 16) -> Tensor:
+    """B = Omega A with Omega an (l, m) standard Gaussian, drawn chunk by
+    chunk of ``chunk_rows`` rows from ``gen`` (a generator on A's device)
+    and never held whole; full float32 products whatever the mode.  The
+    draw is not the JAX package's (its chunks are ``fold_in(key, i)``):
+    statistics, not values, are the contract."""
+    m, n = a.shape
+    a32 = a.to(torch.float32)
+    b = a32.new_zeros(l, n)
+    for c0 in range(0, m, chunk_rows):
+        ach = a32[c0:c0 + chunk_rows]
+        om = torch.randn(l, ach.shape[0], generator=gen, device=a.device,
+                         dtype=torch.float32)
+        b = b + modes.mm_fp32(om, ach)
+    return b
 
 
-def fastqr(a: Tensor, mode="fp32", method: str = "cholqr3_fused",
+def rand_cholqr(a: Tensor, mode="fp32", seed: int = 0, embed: float = 2.0,
+                passes: int = 2) -> tuple[Tensor, Tensor]:
+    """Randomized CholeskyQR: kappa-independent orthogonality in a fixed
+    number of passes.  B = Omega A (l = embed n rows, rounded up to a
+    multiple of 8), R_s = qr(B).R with a positive diagonal,
+    X = A R_s^-1 (kappa(X) ~ 3-6 whatever kappa(A)), then ``passes``
+    (1 or 2) CholeskyQR iterations on X at the mode's grade;
+    R = R_x R_s.  Deterministic given ``seed`` on one device; R is unique
+    (positive diagonal), so it agrees with the reference's to the mode's
+    grade though the sketches differ.  Requires m >= l."""
+    policy = modes.resolve(mode)
+    if passes not in (1, 2):
+        raise ValueError(f"rand_cholqr: passes must be 1 or 2, got {passes}")
+    m, n = a.shape
+    l = max(int(embed * n), n + 8)
+    l = -(-l // 8) * 8
+    if m < l:
+        raise ValueError(
+            f"rand_cholqr requires m >= {l} (= embed*{n} sketch rows) "
+            f"for the subspace embedding, got m={m}; use blockqr/tsqr "
+            "for near-square inputs")
+    a32 = a.to(torch.float32)
+    gen = torch.Generator(device=a.device).manual_seed(seed)
+    r_s = torch.linalg.qr(sketch_gaussian(a32, gen, l), mode="r").R
+    r_s = r_s * torch.where(torch.diagonal(r_s) < 0, -1.0, 1.0)[:, None]
+    # the preconditioner is applied at full precision whatever the mode
+    x = modes.mm_fp32(a32, _rinv(r_s))
+    r1 = _chol_r(modes.gram(x, policy))
+    q = _q_pass(x, r1, policy.mm)
+    rt = modes.mm_fp32(r1, r_s)
+    if passes == 2:
+        r2 = _chol_r(modes.gram(q, policy))
+        rt = modes.mm_fp32(r2, rt)
+        q = _q_pass(q, r2, policy.mm)
+    return q.to(policy.io_dtype), torch.triu(rt).to(policy.io_dtype)
+
+
+_METHODS = {"cholqr1": cholqr1, "cholqr2": cholqr2, "cholqr3": cholqr3,
+            "cholqr1_fused": cholqr1_fused, "cholqr2_fused": cholqr2_fused,
+            "cholqr3_fused": cholqr3_fused, "cholqr_iter": cholqr_iter,
+            "cholqr_iter_fused": cholqr_iter_fused,
+            "rand_cholqr": rand_cholqr}
+
+
+def fastqr(a: Tensor, mode="fp32", method: str = "cholqr3",
            variant: str = "safe", device=None) -> tuple[Tensor, Tensor]:
-    """Tall-skinny QR through one of the ported methods: cholqr1_fused,
-    cholqr3_fused (variants safe, fast, fastest, compact) and
-    cholqr_iter_fused.  Runs on the card unless ``device="cpu"``."""
+    """Tall-skinny QR by one of the methods of ``_METHODS``: cholqr1/2/3
+    (plain products), cholqr{1,2,3}_fused (the stream kernel),
+    cholqr_iter[_fused] (the iterated shifted loop) and rand_cholqr
+    (seed 0).  ``variant`` exists for cholqr2_fused and cholqr3_fused
+    only; past the kernel's range (n > 128) the fused methods run their
+    non-fused siblings, "fast"/"fastest" dropping to the full-grade
+    product and "compact"/"turbo" raising.  Runs on the card unless
+    ``device="cpu"``."""
     a = _device.place(a, device, "fastqr")
     m, n = a.shape
     if m < n:
         raise ValueError(f"fastqr requires m >= n, got {tuple(a.shape)}")
-    if method in _NOT_PORTED_METHODS:
-        raise NotImplementedError(f"method {method!r} {_NOT_PORTED}")
     if method not in _METHODS:
         raise ValueError(f"fastqr: unknown method {method!r}")
     if variant != "safe":
-        if method != "cholqr3_fused":
+        if method not in ("cholqr2_fused", "cholqr3_fused"):
             raise ValueError(
-                f"method {method!r} has no variants (got {variant!r})")
-        return cholqr3_fused(a, mode, variant=variant)
+                f"method {method!r} has no variants (got {variant!r}); "
+                f"variants exist for cholqr2_fused/cholqr3_fused only")
+        return _METHODS[method](a, mode, variant=variant)
     return _METHODS[method](a, mode)
+
+
+def fastqr_inplace(a: Tensor, mode="bf16", method: str = "cholqr1_fused",
+                   variant: str = "compact", device=None
+                   ) -> tuple[Tensor, Tensor]:
+    """Capacity-mode QR: Q is written over A's own storage, so the peak
+    device memory is about A alone (the stream kernel's float64 partials
+    and the (n, n) factors besides).  PyTorch has no buffer donation: the
+    caller's ``a`` holds Q afterwards, and the returned Q is a tensor on
+    the same storage.  ``a`` must already be a contiguous tensor on the
+    device the call runs on (the card unless ``device="cpu"``) with
+    io_dtype == a.dtype: a copy would not alias it.  Methods:
+    cholqr1_fused, cholqr2_fused (variant compact or turbo) and
+    cholqr3_fused (variant compact)."""
+    placed = _device.place(a, device, "fastqr_inplace")
+    if not (isinstance(a, Tensor) and placed.data_ptr() == a.data_ptr()):
+        raise ValueError(f"fastqr_inplace writes Q over the caller's tensor: "
+                         f"a must already be a tensor on {placed.device}")
+    a = placed
+    m, n = a.shape
+    if m < n:
+        raise ValueError(f"fastqr_inplace requires m >= n, got "
+                         f"{tuple(a.shape)}")
+    if method == "cholqr1_fused":
+        return cholqr1_fused(a, mode, inplace=True)
+    if method in ("cholqr2_fused", "cholqr3_fused"):
+        return _METHODS[method](a, mode, variant=variant, inplace=True)
+    raise ValueError(f"fastqr_inplace: unsupported method {method!r}")

@@ -39,6 +39,12 @@
 //   (the same mma.sync sequence, explicit fmaf and __fadd_rn/__fsub_rn,
 //   which nvcc never contracts or reorders), so a Gram-only launch and a
 //   Q-writing launch with the same dots derive identical x.
+// * In place (alias_q in gram_stream.py): the caller may pass q == a.
+//   Each CTA owns the contiguous tiles t0..t1-1; it has every element of
+//   tile t in registers (and then in shared memory) before it writes tile
+//   t's Q, and it fetches tile t+1 before that write, so no row is written
+//   before it is read and no other CTA touches those rows.  Hence p.a and
+//   p.q carry no __restrict__.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

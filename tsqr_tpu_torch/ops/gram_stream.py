@@ -10,7 +10,9 @@ CUDA tensor it launches the kernel or raises: there is no fallback.
 The kernel's shapes: n <= ``N_MAX`` (128), any m; A float32 or bf16; up
 to three dots; modes fp32, bf16, bf16_nocor, bf16x3_nocor, bf16x3_cor and
 bf16x6_cor.  Its Gram is Kahan-compensated once per ``TILE_ROWS`` rows,
-so ``stream`` takes ``chunk == TILE_ROWS`` on the card.
+so ``stream`` takes ``chunk == TILE_ROWS`` on the card.  With ``alias_q``
+it writes Q into A's own storage (each CTA reads a tile before it writes
+that tile's rows), on either device.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ BUILD_DEFINES: tuple[str, ...] = ()
 
 # Kernel launches, counted where each kernel is launched.
 LAUNCHES = 0            # stream_gram_kernel
+ALIAS_LAUNCHES = 0      # of those, with Q written over A (alias_q)
 REDUCE_LAUNCHES = 0     # stream_gram_reduce_kernel
 
 M = modes.ComputeMode
@@ -112,13 +115,22 @@ def effective_chunk(m: int, n: int, chunk: int = DEFAULT_CHUNK) -> int:
     return max(1, min(chunk, m))
 
 
-def _check(a: Tensor, rinvs, dot_modes, write_q, gram_mode, residual):
+def _check(a: Tensor, rinvs, dot_modes, write_q, gram_mode, residual,
+           out_dtype=None, alias_q=False):
     if a.dim() != 2:
         raise ValueError(f"stream wants a 2-D A, got shape {tuple(a.shape)}")
     if len(rinvs) != len(dot_modes):
         raise ValueError("one mode per dot")
     if not write_q and gram_mode is None:
         raise ValueError("stream needs write_q or gram_mode")
+    if alias_q:
+        if not write_q:
+            raise ValueError("alias_q requires write_q")
+        if (out_dtype or a.dtype) != a.dtype:
+            raise ValueError("alias_q requires out_dtype == a.dtype")
+        if not a.is_contiguous():
+            # a copy would hold Q, not the caller's tensor
+            raise ValueError("alias_q requires a contiguous A")
     residual = tuple(residual) or (False,) * len(rinvs)
     if len(residual) != len(rinvs):
         raise ValueError("one residual flag per dot")
@@ -132,15 +144,18 @@ def stream_reference(a: Tensor,
                      gram_mode: str | None = None,
                      chunk: int = DEFAULT_CHUNK,
                      out_dtype: torch.dtype | None = None,
-                     residual: Sequence[bool] = ()):
+                     residual: Sequence[bool] = (),
+                     alias_q: bool = False):
     """Plain PyTorch version of :func:`stream`, on A's device.
 
     x = A (as float32); x = x @ rinvs[i] (or x + x @ rinvs[i] where
     residual[i]) at dot_modes[i]; Q = x in ``out_dtype``; P = the
     half-Gram of x at ``gram_mode``, its ``chunk``-row contributions added
     with Kahan compensation.  Returns [Q] if write_q, + [P] if gram_mode,
-    as a tuple in that order (a single element unpacked)."""
-    residual = _check(a, rinvs, dot_modes, write_q, gram_mode, residual)
+    as a tuple in that order (a single element unpacked).  With
+    ``alias_q`` Q is copied into A, and A is returned as Q."""
+    residual = _check(a, rinvs, dot_modes, write_q, gram_mode, residual,
+                      out_dtype, alias_q)
     m, n = a.shape
     out_dtype = out_dtype or a.dtype
     x = a.to(torch.float32)
@@ -149,7 +164,7 @@ def stream_reference(a: Tensor,
         x = x + y if res else y
     outs = []
     if write_q:
-        outs.append(x.to(out_dtype))
+        outs.append(a.copy_(x) if alias_q else x.to(out_dtype))
     if gram_mode is not None:
         gm = _mode(gram_mode)
         chunk = effective_chunk(m, n, chunk)
@@ -223,9 +238,10 @@ def reduce_partials(partials: Tensor) -> Tensor:
 
 
 def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
-                   residual):
-    """Launch the CUDA kernel (and, for a Gram, its reduction stage)."""
-    global LAUNCHES
+                   residual, alias_q=False):
+    """Launch the CUDA kernel (and, for a Gram, its reduction stage);
+    with ``alias_q`` the kernel writes Q over A."""
+    global LAUNCHES, ALIAS_LAUNCHES
     m, n = a.shape
     if n > N_MAX:
         raise ValueError(f"the stream kernel takes n <= {N_MAX}, got {n}")
@@ -245,8 +261,11 @@ def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
     codes = [_kernel_code(md) for md in dot_ms] + [0] * (3 - len(rs))
     res = [int(b) for b in residual] + [0] * (3 - len(rs))
     ptrs = [r.data_ptr() for r in rs] + [None] * (3 - len(rs))
-    q = torch.empty(m, n, dtype=out_dtype, device=a.device) if write_q \
-        else None
+    if alias_q:
+        q = a
+    else:
+        q = torch.empty(m, n, dtype=out_dtype, device=a.device) if write_q \
+            else None
     gram_code = _kernel_code(gram_m) if gram_m is not None else -1
     grid = grid_size(m, n, len(rs), gram_code)
     partials = (torch.empty(grid, n, n, dtype=torch.float64, device=a.device)
@@ -260,6 +279,7 @@ def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
         stream)
     _raise_on(err, "stream_gram_kernel launch")
     LAUNCHES += 1
+    ALIAS_LAUNCHES += int(alias_q)
     outs = [q] if write_q else []
     if gram_m is not None:
         outs.append(reduce_partials(partials))
@@ -273,9 +293,10 @@ def stream(a: Tensor,
            gram_mode: str | None = None,
            chunk: int = DEFAULT_CHUNK,
            out_dtype: torch.dtype | None = None,
-           residual: Sequence[bool] = ()):
+           residual: Sequence[bool] = (),
+           alias_q: bool = False):
     """One streaming pass over A: chained dots + optional fused half-Gram
-    (the contract of ``stream_pallas``, without ``alias_q``).
+    (the contract of ``stream_pallas``).
 
     For each row: x = A_row; x = x @ rinvs[i] at dot_modes[i] (x += x @
     rinvs[i] where residual[i], with rinvs[i] = Rinv - I); optionally Q =
@@ -283,12 +304,18 @@ def stream(a: Tensor,
     (the caller forms G = P + P^T).  Returns [Q] if write_q, + [P] if
     gram_mode, as a tuple in that order (a single element unpacked).
 
+    ``alias_q=True`` writes Q into A's own storage and returns a tensor on
+    it: the caller's A holds Q afterwards.  It requires ``write_q``,
+    ``out_dtype == a.dtype`` and a contiguous A.  The result is bit for
+    bit that of the call without it.
+
     A CUDA tensor goes through the CUDA kernel, which raises for what it
     does not take; a CPU tensor through :func:`stream_reference`."""
-    residual = _check(a, rinvs, dot_modes, write_q, gram_mode, residual)
+    residual = _check(a, rinvs, dot_modes, write_q, gram_mode, residual,
+                      out_dtype, alias_q)
     if a.device.type == "cpu":
         return stream_reference(a, rinvs, dot_modes, write_q, gram_mode,
-                                chunk, out_dtype, residual)
+                                chunk, out_dtype, residual, alias_q)
     if a.device.type != "cuda":
         raise ValueError(f"stream runs on cuda or cpu, got {a.device}")
     if chunk != TILE_ROWS:
@@ -297,7 +324,7 @@ def stream(a: Tensor,
     dot_ms = [_mode(d) for d in dot_modes]
     gram_m = _mode(gram_mode) if gram_mode is not None else None
     return _stream_kernel(a, rinvs, dot_ms, write_q, gram_m,
-                         out_dtype or a.dtype, residual)
+                         out_dtype or a.dtype, residual, alias_q)
 
 
 def gram_stream(a: Tensor, mode: str = "fp32",
