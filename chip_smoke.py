@@ -7,8 +7,9 @@ Householder tree on the panel kernel), run it at tiers 2 and 3, run
 BlockQR past one panel at (2^18, 512), run the measurement path (the
 bandwidth sweep of ``harness.bw`` and the ``harness.mfu`` sweep), the
 in-place QR at (2^22, 128), every cholqr2_fused variant and ``qr_auto``,
-and print the ``kernels`` JSON line and a last JSON line with the
-device.
+time the stream kernel's call kinds beside those of the kernel before
+its redesign, and print the
+``kernels`` JSON line and a last JSON line with the device.
 
     python3 chip_smoke.py [--seed N]
 
@@ -55,6 +56,17 @@ INPLACE_CASES = (("cholqr1_fused", "safe"), ("cholqr2_fused", "compact"),
 CHOLQR2_VARIANTS = ("safe", "fast", "fastest", "compact", "turbo")
 MFU_NS = (128, 512)
 TOL = {"fp32": 1e-6, "bf16x6_cor": 1e-6, "bf16x3_cor": 1e-5, "bf16": 4e-3}
+OTHER_MODES = ("fp32", "bf16x3_cor", "bf16")
+# The stream kernel's call kinds before its redesign (one CTA per SM,
+# Kahan updates every 16 rows), (2^20, 128) f32 A, ms: harness/
+# stream_calls.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6).
+# Printed beside this run's times so that a slower mode or call kind shows.
+BEFORE_REDESIGN_MS = {
+    "gram fp32": 3.666, "qpass fp32": 6.216, "gram bf16": 3.094,
+    "qpass bf16": 5.581, "gram bf16x3_cor": 3.676,
+    "qpass bf16x3_cor": 7.197, "gram bf16x6_cor": 3.982,
+    "qpass bf16x6_cor": 7.785, "compact_final bf16x6_cor": 18.623,
+    "qpass_alias_q bf16x6_cor": 7.744}
 ZERO_COL = 33        # the tier-4 path's zeroed column
 M_WIDE, N_WIDE = 1 << 18, 512
 # panel kernel against its plain version: the two sum in other orders
@@ -398,9 +410,11 @@ def phase_gram_error(a) -> None:
         g = gs.gram_stream(a, mode).double()
         out[mode] = float(torch.linalg.norm(g - g64) / torch.linalg.norm(g64))
     chunk = gs.effective_chunk(M_MAIN, N)
-    out["budget_sqrt_chunk_eps"] = math.sqrt(chunk) * 6e-8
+    out["budget_sqrt_chunk_eps"] = budget = math.sqrt(chunk) * 6e-8
     out["chunk"] = chunk
     print(json.dumps({"gram_rel_err_vs_fp64": out}), flush=True)
+    if not max(out["bf16x6_cor"], out["fp32"]) <= budget:
+        raise AssertionError(f"Gram error outside sqrt(chunk) eps: {out}")
     del a64, g64
 
 
@@ -664,24 +678,48 @@ def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
         for c in calls]
     lib_ms = [float(np.median(timing.time_cuda(lambda: a.T @ a))),
               float(np.median(timing.time_cuda(lambda: a @ rinv)))]
+    # the other modes and the compact_final call kind, each held against
+    # its plain version at the check shape and timed at the main shape
+    mode_ms = {}
+    delta = 1e-3 * torch.randn(N, N, device="cuda", generator=gen) / math.sqrt(N)
+    kinds = {f"gram {md}": dict(gram_mode=md) for md in OTHER_MODES}
+    kinds.update({f"qpass {md}": dict(rinvs=(rinv,), dot_modes=(md,),
+                                      write_q=True) for md in OTHER_MODES})
+    kinds["compact_final " + MODE] = call_sites(MODE, rinv, delta)[
+        "compact_final"]
+    for label, cfg in kinds.items():
+        compare(a[:M_CHECK], cfg, TOL[label.split()[-1]], label)
+        mode_ms[label] = float(np.median(timing.time_cuda(
+            lambda c=cfg: gs.stream(a, **c))))
+    mode_ms["gram " + MODE], mode_ms["qpass " + MODE] = k_ms
+    mode_ms["qpass_alias_q " + MODE] = alias_ms
+    print(json.dumps({"stream_call_kinds_ms": {
+        k: {"ms": v, "before_redesign_ms": BEFORE_REDESIGN_MS.get(k)}
+        for k, v in mode_ms.items()},
+        "before_redesign_source": "harness/stream_calls.py, PERF.md"}),
+        flush=True)
     t_bytes = sum(b["bytes"] for b in bounds) / flops.H100_BYTES_PER_S
     t_ops = sum(b["bf16_flops"] / flops.H100_BF16_FLOPS
                 + b["fp32_flops"] / flops.H100_FP32_FLOPS for b in bounds)
 
     # the reduction stage at the main path's shape: one float64 (n, n)
-    # partial per CTA of a Gram launch
-    grid = gs.grid_size(M_MAIN, N, 0, gs._kernel_code(gs._mode(MODE)))
-    part = torch.randn(grid, N, N, dtype=torch.float64, device="cuda",
+    # partial per CTA pair of a Gram launch
+    grid = gs.grid_size(M_MAIN, N, (), gs._kernel_code(gs._mode(MODE)))
+    part = torch.randn(grid // 2, N, N, dtype=torch.float64, device="cuda",
                        generator=gen)
     red = gs.reduce_partials(part)
     red_ref = part.sum(0).float()
     red_err = float((red.double() - red_ref.double()).abs().max())
     if not rel(red, red_ref) <= 1e-6:
         raise AssertionError("reduction stage disagrees with torch.sum")
-    r_ms = float(np.median(timing.time_cuda(lambda: gs.reduce_partials(part))))
-    r_plain = float(np.median(timing.time_cuda(
-        lambda: part.sum(0).float())))
-    r_lib = float(np.median(timing.time_cuda(lambda: part.sum(0))))
+    # device time per call from a CUDA graph of 20 calls: one call's
+    # event time is mostly the host's launch at this size
+    r_ms = timing.graph_ms(lambda: gs.reduce_partials(part))
+    r_plain = timing.graph_ms(lambda: part.sum(0).float())
+    r_lib = timing.graph_ms(lambda: part.sum(0))
+    r_event_ms = {"kernel": float(np.median(timing.time_cuda(
+        lambda: gs.reduce_partials(part)))), "library": float(np.median(
+            timing.time_cuda(lambda: part.sum(0))))}
     r_bytes = part.numel() * 8 + N * N * 4
     kernels = [
         {"name": "stream_gram", "route": "cuda", "source": SOURCE,
@@ -699,14 +737,19 @@ def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
          "per_call_plain_ms": {"gram": p_ms[0], "qpass": p_ms[1]},
          "per_call_bound_ms": {"gram": bounds[0]["bound_ms"],
                                "qpass": bounds[1]["bound_ms"]},
-         "per_call_library_ms": {"a.T@a": lib_ms[0], "a@rinv": lib_ms[1]}},
+         "per_call_library_ms": {"a.T@a": lib_ms[0], "a@rinv": lib_ms[1]},
+         "per_call_kind_ms": mode_ms,
+         "split_r_prologue": "each launch with dots first splits its "
+                             "factors once (stream_gram_split_r_kernel)"},
         {"name": "stream_gram_reduce", "route": "cuda", "source": SOURCE,
          "replaces": "tsqr_tpu/ops/pallas_gram.py:280",
          "launches": counts["stream_gram_reduce"], "max_abs_err": red_err,
          "ms": r_ms, "plain_ms": r_plain,
          "bound_ms": 1e3 * r_bytes / flops.H100_BYTES_PER_S,
          "bound_by": "bytes", "library_ms": r_lib,
-         "shapes": f"({part.shape[0]}, {N}, {N}) float64 partials"},
+         "shapes": f"({part.shape[0]}, {N}, {N}) float64 partials",
+         "timing": "CUDA graph of 20 calls (utils/timing.graph_ms)",
+         "single_call_event_ms": r_event_ms},
         panel_entry(tier4),
         probe_entry("read_reduce", bw_run["counts"], gen),
         probe_entry("copy", bw_run["counts"], gen),

@@ -91,6 +91,70 @@ def test_bf16_io_and_chained_dots(card):
     assert _rel(q, q0) <= 4e-3 and _rel(p + p.T, p0 + p0.T) <= 4e-3
 
 
+# every mode with its tolerance against the plain version: fp32 and the
+# three-part split at float32 grade, the two-part splits at 2^-16 grade,
+# one bf16 part at its output rounding
+EDGE_TOL = {"fp32": 1e-6, "bf16x6_cor": 1e-6, "bf16x3_cor": 1e-5,
+            "bf16x3_nocor": 1e-5, "bf16": 4e-3, "bf16_nocor": 4e-3}
+CHUNK = gram_stream.CHUNK_ROWS
+
+
+@pytest.mark.parametrize("n", [128, 64, 50, 8])
+@pytest.mark.parametrize("m", [5, 1001, CHUNK + 1, 5 * CHUNK + 77])
+def test_kernel_edges_match_plain_version(card, m, n):
+    """Below one tile, a ragged tile, one chunk and a row, several pairs
+    of CTAs; n below and off the mma tile; every mode, one to three dots
+    with residual steps; Gram-only against Q-writing bit for bit."""
+    a, rinv, delta = _inputs(card, m, n, seed=m + n)
+    for mode, tol in EDGE_TOL.items():
+        io = torch.bfloat16 if mode.startswith("bf16") and tol > 1e-4 \
+            else torch.float32
+        x = a.to(io)
+        for k in (1, 2, 3):
+            rinvs = ((rinv, delta, delta)[:k])
+            kw = dict(residual=(False, True, True)[:k], gram_mode=mode)
+            dm = (mode,) * k
+            q, p = gram_stream.stream(x, rinvs, dm, write_q=True, **kw)
+            q0, p0 = gram_stream.stream_reference(x, rinvs, dm, write_q=True,
+                                                  **kw)
+            assert q.dtype == io and q.shape == (m, n)
+            assert _rel(q, q0) <= tol, (mode, k)
+            assert _rel(p + p.T, p0 + p0.T) <= tol, (mode, k)
+            assert torch.equal(gram_stream.stream(x, rinvs, dm, **kw), p)
+            # and a launch without a Gram derives the same Q
+            assert torch.equal(gram_stream.stream(
+                x, rinvs, dm, write_q=True, residual=kw["residual"]), q)
+        g = gram_stream.gram_stream(x, mode)
+        g0 = gram_stream.stream_reference(x, gram_mode=mode)
+        assert _rel(g, g0 + g0.T) <= tol, mode
+
+
+@pytest.mark.parametrize("m", [1001, 5 * CHUNK + 77])
+def test_alias_q_bitwise_at_edges(card, m):
+    a, rinv, delta = _inputs(card, m, 50, seed=3)
+    for gram in (None, "bf16x6_cor"):
+        kw = dict(residual=(False, True), write_q=True, gram_mode=gram)
+        dots = ((rinv, delta), ("bf16x6_cor", "bf16x3_cor"))
+        ref = gram_stream.stream(a, *dots, **kw)
+        a1 = a.clone()
+        got = gram_stream.stream(a1, *dots, alias_q=True, **kw)
+        ref, got = (ref, got) if gram else ((ref,), (got,))
+        assert got[0].data_ptr() == a1.data_ptr()
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+
+
+def test_reduce_stage_repeats_and_matches_sum(card):
+    gen = torch.Generator(device=card).manual_seed(7)
+    part = torch.randn(66, N, N, dtype=torch.float64, device=card,
+                       generator=gen)
+    out = gram_stream.reduce_partials(part)
+    assert torch.equal(out, gram_stream.reduce_partials(part))
+    s = part.sum(0)
+    # both sum in float64, in other orders: one float32 rounding apart
+    assert bool(((out.double() - s).abs()
+                 <= 2.0 ** -24 * s.abs() + 1e-12).all())
+
+
 def test_kernel_raises_on_what_it_does_not_take(card):
     a, rinv, _ = _inputs(card, 256)
     with pytest.raises(ValueError, match="chunk"):

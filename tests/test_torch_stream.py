@@ -8,13 +8,14 @@ import pytest
 import torch
 
 from tsqr_tpu.ops import pallas_gram
+from tsqr_tpu_torch.core import cholqr
 from tsqr_tpu_torch.harness import flops
 from tsqr_tpu_torch.ops import gram_stream
 
 torch.set_num_threads(2)
 
 N = 128
-CHUNK = 512
+CHUNK = gram_stream.GRAM_CHUNK  # the kernel's chunk, in both packages
 
 
 def _inputs(m, seed=0):
@@ -97,17 +98,20 @@ def test_stream_dispatches_cpu_tensor_to_plain_version():
     assert (gram_stream.LAUNCHES, gram_stream.REDUCE_LAUNCHES) == before
 
 
-def test_gram_and_qpass_wrappers_match_pallas():
+@pytest.mark.parametrize("chunk", [CHUNK, 512])
+def test_gram_and_qpass_wrappers_match_pallas(chunk):
+    """At the kernel's chunk (one chunk at this m) and at 512 rows, where
+    the compensated sum runs over four chunks."""
     a, rinv, _ = _inputs(2048, seed=1)
     at, aj = torch.from_numpy(a), jnp.asarray(a)
-    g = gram_stream.gram_stream(at, "bf16x6_cor", chunk=CHUNK).numpy()
-    gj = np.asarray(pallas_gram.gram_pallas(aj, "bf16x6_cor", chunk=CHUNK,
+    g = gram_stream.gram_stream(at, "bf16x6_cor", chunk=chunk).numpy()
+    gj = np.asarray(pallas_gram.gram_pallas(aj, "bf16x6_cor", chunk=chunk,
                                             interpret=True))
     assert _rel(g, gj) <= 1e-6
     q, g2 = gram_stream.qpass_stream(at, torch.from_numpy(rinv), "fp32",
-                                     chunk=CHUNK)
+                                     chunk=chunk)
     qj, g2j = pallas_gram.qpass_pallas(aj, jnp.asarray(rinv), "fp32",
-                                       chunk=CHUNK, interpret=True)
+                                       chunk=chunk, interpret=True)
     assert _rel(q.numpy(), np.asarray(qj)) <= 1e-6
     assert _rel(g2.numpy(), np.asarray(g2j)) <= 1e-6
 
@@ -123,8 +127,12 @@ def test_stream_rejects_bad_calls():
 
 
 def test_effective_chunk_and_bound():
-    assert gram_stream.effective_chunk(1 << 20, 128) == gram_stream.TILE_ROWS
+    assert gram_stream.GRAM_CHUNK == gram_stream.DEFAULT_CHUNK == 4096
+    assert gram_stream.effective_chunk(1 << 20, 128) == 4096
+    assert gram_stream.effective_chunk(1001, 128) == 1001
     assert gram_stream.effective_chunk(5, 128, 512) == 5
+    assert gram_stream.TILE_ROWS == 64
+    assert gram_stream.CHUNK_ROWS % gram_stream.TILE_ROWS == 0
     # the Gram at the bench shape reads 512 MiB: >= 0.16 ms on an H100
     b = flops.stream_bound(1 << 20, 128, gram_mode="bf16x6_cor")
     assert b["bytes"] == (1 << 29) + 4 * 128 * 128
@@ -134,3 +142,21 @@ def test_effective_chunk_and_bound():
     f = flops.stream_bound(1 << 20, 128, ("fp32",), write_q=True)
     assert f["bound_by"] == "operations"
 
+
+@pytest.mark.parametrize("method", ["cholqr3_fused", "cholqr_iter_fused"])
+def test_shift_budgets_the_kernels_chunk(monkeypatch, method):
+    """The fused shift is fed the chunk the kernel sums before each
+    compensated add (CHUNK_ROWS), clamped to m as the plain version
+    clamps it."""
+    seen = []
+    shift = cholqr._shift_value_fused
+    monkeypatch.setattr(cholqr, "_shift_value_fused",
+                        lambda g, n, chunk: seen.append(chunk) or shift(
+                            g, n, chunk))
+    for m in (4500, 300):
+        a = np.random.default_rng(m).uniform(-1, 1, (m, 8))
+        a[:, 3] = 0.0  # a zero column: every pass of the loop is shifted
+        getattr(cholqr, method)(torch.from_numpy(a.astype(np.float32)),
+                                "bf16x6_cor")
+        assert seen and set(seen) == {min(m, gram_stream.CHUNK_ROWS)}
+        seen.clear()

@@ -57,9 +57,8 @@ def _rinv(r: Tensor) -> Tensor:
 
 
 def _fused_n_max(policy: modes.Policy) -> int:
-    """Widest n the stream kernel takes, for every mode: its shared
-    memory holds a TILE_ROWS x n tile, its split parts and the (n, n)
-    Kahan sum and compensation."""
+    """Widest n the stream kernel takes, for every mode: its tiles and
+    its Gram accumulators are laid out for at most N_MAX columns."""
     del policy
     return gram_stream.N_MAX
 
@@ -100,7 +99,7 @@ def _q_pass(a: Tensor, r: Tensor, mm: Callable) -> Tensor:
 
 
 def _shift_value_fused(g: Tensor, n: int, chunk: int) -> Tensor:
-    """Cholesky-safeguard shift for the Kahan streaming Gram, whose
+    """Cholesky-safeguard shift for the compensated streaming Gram, whose
     error is ~sqrt(chunk) eps ||G||, independent of m:
     s = 11 (sqrt(chunk) n + n (n + 1)) eps ||G||_F, (1, 1)-shaped."""
     norm = torch.sqrt(torch.sum(g * g)).reshape(1, 1)

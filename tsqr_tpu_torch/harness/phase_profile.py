@@ -20,9 +20,9 @@ import json
 import numpy as np
 import torch
 
-PHASE_NAMES = ("top_sync", "tile_load", "dot_split+sync", "r_slab_load",
-               "r_slab_sync", "dot_mma", "x_update+sync", "q_write",
-               "gram_split+sync", "gram")
+PHASE_NAMES = ("ring_wait", "alias_arrive", "r_image_copy", "dot_split",
+               "dot_products", "gram_split", "q_write", "gram_products",
+               "chunk_fold", "tile_end+setup")
 MAX_PROFILED_CTAS = 1024
 
 
@@ -53,9 +53,11 @@ def main() -> None:
     }
     for label, cfg in calls.items():
         ms = timing.median_ms(lambda: gs.stream(a, **cfg))
-        grid = gs.grid_size(args.m, 128, len(cfg.get("rinvs", ())),
-                            gs._kernel_code(gs._mode(cfg["gram_mode"]))
-                            if "gram_mode" in cfg else -1)
+        grid = gs.grid_size(
+            args.m, 128, [gs._kernel_code(gs._mode(d))
+                          for d in cfg.get("dot_modes", ())],
+            gs._kernel_code(gs._mode(cfg["gram_mode"]))
+            if "gram_mode" in cfg else -1)
         gs.stream(a, **cfg)
         torch.cuda.synchronize()
         if lib.stream_gram_phase_cycles(buf.ctypes.data):

@@ -1,5 +1,5 @@
 """The streaming pass of the CholeskyQR pipelines: chained dots, an
-optional Q write and an optional Kahan-compensated half-Gram, in one read
+optional Q write and an optional compensated half-Gram, in one read
 of A.
 
 Counterpart of ``tsqr_tpu/ops/pallas_gram.py``.  :func:`stream` launches
@@ -9,15 +9,18 @@ CUDA tensor it launches the kernel or raises: there is no fallback.
 
 The kernel's shapes: n <= ``N_MAX`` (128), any m; A float32 or bf16; up
 to three dots; modes fp32, bf16, bf16_nocor, bf16x3_nocor, bf16x3_cor and
-bf16x6_cor.  Its Gram is Kahan-compensated once per ``TILE_ROWS`` rows,
-so ``stream`` takes ``chunk == TILE_ROWS`` on the card.  With ``alias_q``
-it writes Q into A's own storage (each CTA reads a tile before it writes
-that tile's rows), on either device.
+bf16x6_cor.  It reads A in tiles of ``TILE_ROWS`` rows and sums its Gram
+in float32 over chunks of ``CHUNK_ROWS`` rows, adding each chunk into a
+float64 sum, so ``stream`` takes ``chunk == CHUNK_ROWS`` on the card and
+the plain version compensates once per chunk of the same size.  With
+``alias_q`` it writes Q into A's own storage (each CTA reads a tile
+before it writes that tile's rows), on either device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -26,10 +29,11 @@ from tsqr_tpu_torch import modes
 
 Tensor = torch.Tensor
 
-TILE_ROWS = 16          # rows the kernel sums before one compensated add
-N_MAX = 128             # widest n the kernel's shared memory holds
-DEFAULT_CHUNK = TILE_ROWS
-GRAM_CHUNK = TILE_ROWS
+TILE_ROWS = 64          # rows of one tile of the kernel's ring
+CHUNK_ROWS = 4096       # most rows the kernel sums before a compensated add
+N_MAX = 128             # widest n the kernel takes
+DEFAULT_CHUNK = CHUNK_ROWS
+GRAM_CHUNK = CHUNK_ROWS
 _BLOCK_CHUNKS = 1024    # chunks whose Gram contributions the plain
                         # version forms in one batched product
 
@@ -41,6 +45,8 @@ BUILD_DEFINES: tuple[str, ...] = ()
 LAUNCHES = 0            # stream_gram_kernel
 ALIAS_LAUNCHES = 0      # of those, with Q written over A (alias_q)
 REDUCE_LAUNCHES = 0     # stream_gram_reduce_kernel
+# Each launch with dots also launches stream_gram_split_r_kernel first,
+# which splits the factors once; it is counted with LAUNCHES.
 
 M = modes.ComputeMode
 # split parts per mode: (parts, rounded to bf16); the residual order of
@@ -94,23 +100,40 @@ def _dot_mode(x: Tensor, r: Tensor, md: modes.ComputeMode) -> Tensor:
 
 def _gram_half(x: Tensor, md: modes.ComputeMode) -> Tensor:
     """Half-Gram P of x (contracting the row axis; batched over leading
-    axes): X^T X = P + P^T, terms added smallest order first."""
+    axes): X^T X = P + P^T.  One product per residual order, as the
+    kernel sums them: order 2 is x0^T x2 + x1^T (x1 / 2) stacked along
+    the contraction, and the diagonal terms' 1/2 (a power of two, exact)
+    sits in an operand; the orders are added smallest first.
+
+    On the card each order's product over the chunk is formed in float64
+    and rounded once to float32: there a float32 matmul over a 4096-row
+    chunk lands 8.7e-6 off the exact Gram of the parts, low on the
+    diagonal, where the kernel is within 3e-8 (an H100 80GB HBM3 at
+    700 W, PERF.md), and the plain version is the reference the kernel is
+    held to.  On the CPU the products are float32, as the JAX package's
+    are."""
     xp, order = _mode_parts(x, md)
+    wide = torch.float64 if x.is_cuda else x.dtype
+
+    def t(u, v):
+        return torch.matmul(u.transpose(-2, -1).to(wide),
+                            v.to(wide)).to(torch.float32)
+
+    if order == 0:
+        return t(xp[0], 0.5 * xp[0])
     acc = None
-    for s in range(order, -1, -1):
-        for i in range(len(xp)):
-            j = s - i
-            if i <= j < len(xp):
-                t = torch.matmul(xp[i].transpose(-2, -1), xp[j])
-                if i == j:
-                    t = 0.5 * t
-                acc = t if acc is None else acc + t
-    return acc
+    if order == 2:
+        acc = t(torch.cat([xp[0], xp[1]], dim=-2),
+                torch.cat([xp[2], 0.5 * xp[1]], dim=-2))
+    b1 = t(xp[0], xp[1])
+    acc = b1 if acc is None else acc + b1
+    return acc + t(xp[0], 0.5 * xp[0])
 
 
 def effective_chunk(m: int, n: int, chunk: int = DEFAULT_CHUNK) -> int:
-    """Rows summed before one compensated add of the Gram (the error
-    budget of ``cholqr._shift_value_fused`` is ~sqrt(chunk) eps)."""
+    """Rows summed in float32 before one compensated add of the Gram (the
+    error budget of ``cholqr._shift_value_fused`` is ~sqrt(chunk) eps);
+    on the card ``chunk`` is ``CHUNK_ROWS``."""
     del n
     return max(1, min(chunk, m))
 
@@ -191,20 +214,22 @@ def _lib():
     lib = _build.load("stream_gram", BUILD_DEFINES)
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.stream_gram_grid.argtypes = [cll, ci, ci, ci,
-                                         ctypes.POINTER(ci)]
+        lib.stream_gram_grid.argtypes = [cll] + [ci] * 6 + [
+            ctypes.POINTER(ci)]
         lib.stream_gram_launch.argtypes = (
-            [vp, ci, vp, vp, vp, ci] + [ci] * 6 + [vp, ci, ci, ci, vp, cll,
-                                                   ci, ci, vp])
+            [vp, ci, vp, vp, vp, ci] + [ci] * 6
+            + [vp, vp, ci, ci, ci, ci, vp, cll, ci, ci, vp])
         lib.stream_gram_reduce.argtypes = [vp, vp, ci, ci, vp]
         for f in (lib.stream_gram_grid, lib.stream_gram_launch,
                   lib.stream_gram_reduce, lib.stream_gram_tile_rows,
-                  lib.stream_gram_n_max):
+                  lib.stream_gram_chunk_rows, lib.stream_gram_n_max,
+                  lib.stream_gram_r_image_bytes):
             f.restype = ci
         if (lib.stream_gram_tile_rows() != TILE_ROWS
+                or lib.stream_gram_chunk_rows() != CHUNK_ROWS
                 or lib.stream_gram_n_max() != N_MAX):
             raise RuntimeError("stream_gram.cu and gram_stream.py disagree "
-                               "on TILE_ROWS / N_MAX")
+                               "on TILE_ROWS / CHUNK_ROWS / N_MAX")
         lib._typed = True
     return lib
 
@@ -214,24 +239,35 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
-def grid_size(m: int, n: int, n_dots: int, gram_code: int) -> int:
-    """CTAs of a launch (one float64 (n, n) partial Gram each);
-    ``gram_code`` is -1 for no Gram."""
+def grid_size(m: int, n: int, dot_codes: Sequence[int] = (),
+              gram_code: int = -1) -> int:
+    """CTAs of a launch (kernel codes of the dots; ``gram_code`` -1 for
+    no Gram).  Always even: the CTAs run in clusters of two, and a Gram
+    launch's pair of CTAs shares one float64 (n, n) partial."""
+    return _grid(m, n, tuple(dot_codes), gram_code,
+                 torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=256)
+def _grid(m, n, dot_codes, gram_code, device):
+    del device  # part of the key: the grid depends on the card
+    codes = list(dot_codes) + [0] * (3 - len(dot_codes))
     g = ctypes.c_int(0)
-    _raise_on(_lib().stream_gram_grid(m, n, n_dots, gram_code,
-                                      ctypes.byref(g)), "stream_gram_grid")
+    _raise_on(_lib().stream_gram_grid(m, n, len(dot_codes), *codes,
+                                      gram_code, ctypes.byref(g)),
+              "stream_gram_grid")
     return g.value
 
 
 def reduce_partials(partials: Tensor) -> Tensor:
-    """Launch the reduction stage: sum the (grid, n, n) float64 partials
-    over the grid in a fixed order, in float64, into a float32 (n, n)."""
+    """Launch the reduction stage: sum the (slabs, n, n) float64 partials
+    over the slabs in a fixed order, in float64, into a float32 (n, n)."""
     global REDUCE_LAUNCHES
-    grid, n, _ = partials.shape
+    slabs, n, _ = partials.shape
     out = torch.empty(n, n, dtype=torch.float32, device=partials.device)
     stream = torch.cuda.current_stream(partials.device).cuda_stream
     _raise_on(_lib().stream_gram_reduce(partials.data_ptr(), out.data_ptr(),
-                                        grid, n * n, stream),
+                                        slabs, n * n, stream),
               "stream_gram_reduce")
     REDUCE_LAUNCHES += 1
     return out
@@ -267,16 +303,21 @@ def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
         q = torch.empty(m, n, dtype=out_dtype, device=a.device) if write_q \
             else None
     gram_code = _kernel_code(gram_m) if gram_m is not None else -1
-    grid = grid_size(m, n, len(rs), gram_code)
-    partials = (torch.empty(grid, n, n, dtype=torch.float64, device=a.device)
+    grid = grid_size(m, n, codes[:len(rs)], gram_code)
+    partials = (torch.empty(grid // 2, n, n, dtype=torch.float64,
+                            device=a.device)
                 if gram_m is not None else None)
+    # the factors' split images (stream_gram_split_r_kernel writes them)
+    image = (torch.empty(len(rs) * _lib().stream_gram_r_image_bytes(),
+                         dtype=torch.uint8, device=a.device) if rs else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _lib().stream_gram_launch(
         a.data_ptr(), int(a.dtype == torch.bfloat16), *ptrs, len(rs),
-        *codes, *res, q.data_ptr() if write_q else None,
-        int(out_dtype == torch.bfloat16), int(write_q), gram_code,
-        partials.data_ptr() if partials is not None else None, m, n, grid,
-        stream)
+        *codes, *res, image.data_ptr() if image is not None else None,
+        q.data_ptr() if write_q else None,
+        int(out_dtype == torch.bfloat16), int(write_q), int(alias_q),
+        gram_code, partials.data_ptr() if partials is not None else None,
+        m, n, grid, stream)
     _raise_on(err, "stream_gram_kernel launch")
     LAUNCHES += 1
     ALIAS_LAUNCHES += int(alias_q)
@@ -318,8 +359,8 @@ def stream(a: Tensor,
                                 chunk, out_dtype, residual, alias_q)
     if a.device.type != "cuda":
         raise ValueError(f"stream runs on cuda or cpu, got {a.device}")
-    if chunk != TILE_ROWS:
-        raise ValueError(f"the stream kernel compensates every {TILE_ROWS} "
+    if chunk != CHUNK_ROWS:
+        raise ValueError(f"the stream kernel compensates every {CHUNK_ROWS} "
                          f"rows; got chunk={chunk}")
     dot_ms = [_mode(d) for d in dot_modes]
     gram_m = _mode(gram_mode) if gram_mode is not None else None
