@@ -7,9 +7,10 @@ Householder tree on the panel kernel), run it at tiers 2 and 3, run
 BlockQR past one panel at (2^18, 512), run the measurement path (the
 bandwidth sweep of ``harness.bw`` and the ``harness.mfu`` sweep), the
 in-place QR at (2^22, 128), every cholqr2_fused variant and ``qr_auto``,
-time the stream kernel's call kinds beside those of the kernel before
-its redesign, and print the
-``kernels`` JSON line and a last JSON line with the device.
+take gradients through the entry points on the card (the ``grad`` phase:
+the ladder, the tree and BlockQR, held against the CPU's), time the stream
+kernel's call kinds beside those of the kernel before its redesign, and
+print the ``kernels`` JSON line and a last JSON line with the device.
 
     python3 chip_smoke.py [--seed N]
 
@@ -76,6 +77,13 @@ M_WIDE, N_WIDE = 1 << 18, 512
 # (core/auto.py _TOL)
 PANEL_TOL = {"fp32": 1e-5, "bf16x6_cor": 1e-5, "bf16x3_cor": 1e-4}
 PANEL_CASES = ((264, 256, 128), (64, 256, 64), (33, 200, 50))
+# the grad phase: (m, n), and the cases (entry, mode).  The card's and the
+# CPU's factors agree to float32 grade; the rule carries their difference
+# through R^{-1}, kappa(A) ~ 5 for these uniform inputs
+M_GRAD, N_GRAD = 1 << 14, 64
+GRAD_CASES = (("qr_auto_fused", "bf16x6_cor"), ("qr_auto_fused", "fp32"),
+              ("tsqr", "bf16x6_cor"), ("qr", "bf16x6_cor"))
+GRAD_TOL = 1e-5
 
 
 def rel(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -576,6 +584,51 @@ def phase_qr_auto(gen) -> None:
                              "kernel")
 
 
+def grad_of(entry: str, a, w, v, mode: str, **kw):
+    """d(sum Q.W + sum R.V)/dA through ``entry``, and the (Q, R) taken."""
+    a = a.detach().clone().requires_grad_()
+    q, r = getattr(tsqr_tpu_torch, entry)(a, mode, **kw)
+    loss = (q.float() * w).sum() + (r.float() * v).sum()
+    (g,) = torch.autograd.grad(loss, a)
+    return g, q, r
+
+
+def phase_grad(gen) -> None:
+    """Gradients through the entry points on the card: the ladder at tier
+    1 (bf16x6_cor and fp32, the stream kernel), the tree and BlockQR (the
+    panel kernel), at (M_GRAD, N_GRAD).  Q and R from the card carry a
+    grad_fn; each gradient is held against the same entry's with
+    device="cpu" on the same input; a CPU tensor given to the card's entry
+    gets its gradient back on the CPU."""
+    a = torch.rand(M_GRAD, N_GRAD, device="cuda", generator=gen) * 2 - 1
+    w = torch.rand(M_GRAD, N_GRAD, device="cuda", generator=gen) * 2 - 1
+    v = torch.rand(N_GRAD, N_GRAD, device="cuda", generator=gen) * 2 - 1
+    out = {}
+    reset_counts()
+    for entry, mode in GRAD_CASES:
+        what = f"{entry} {mode}"
+        g, q, r = grad_of(entry, a, w, v, mode)
+        if q.grad_fn is None or r.grad_fn is None:
+            raise AssertionError(f"grad {what}: Q or R has no grad_fn")
+        g_cpu, _, _ = grad_of(entry, a.cpu(), w.cpu(), v.cpu(), mode,
+                              device="cpu")
+        e = rel(g.cpu(), g_cpu)
+        if not (bool(torch.isfinite(g).all()) and e <= GRAD_TOL):
+            raise AssertionError(f"grad {what}: rel err vs the CPU {e:.3e}")
+        out[what] = {"rel_err_vs_cpu": e, "ms": float(np.median(
+            timing.time_cuda(lambda en=entry, md=mode: grad_of(
+                en, a, w, v, md), reps=3, warmup=1)))}
+    counts = read_counts()
+    if counts["stream_gram"] < 1 or counts["panel_qr"] < 1:
+        raise AssertionError(f"grad phase launches {counts}")
+    g_moved, _, _ = grad_of("tsqr", a.cpu(), w, v, MODE)
+    if g_moved.device.type != "cpu":
+        raise AssertionError("a CPU input's gradient is not on the CPU")
+    print(json.dumps({"grad_path": f"({M_GRAD}x{N_GRAD} f32), loss sum "
+                                   "Q.W + R.V", "tolerance": GRAD_TOL,
+                      "launches": counts, "cases": out}), flush=True)
+
+
 def panel_entry(tier4: dict) -> dict:
     """The panel kernel at the tier-4 path's leaf shape: the zero-column
     input cut into its leaves, as the first tree's leaf launch sees it."""
@@ -613,10 +666,12 @@ def probe_entry(name: str, counts: dict, gen) -> dict:
         fn, plain = bw_probe.read_reduce, bw_probe.read_reduce_reference
         lib = (lambda: a.view(-1, 8, N).sum(0))
         replaces = "scripts/bw_experiments.py:46 (B5)"
+        rpc = bw_probe.DEFAULT_ROWS_PER_CTA
     else:
         fn, plain = bw_probe.copy, bw_probe.copy_reference
         lib = (lambda: torch.mul(a, bw_probe.COPY_SCALE))
         replaces = "scripts/bw_experiments.py:74 (B6)"
+        rpc = bw_probe.COPY_ROWS_PER_CTA
     got, ref = fn(a), plain(a)
     torch.cuda.synchronize()
     err = float((got.double() - ref.double()).abs().max())
@@ -636,8 +691,7 @@ def probe_entry(name: str, counts: dict, gen) -> dict:
              "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
              "library_ms": float(np.median(timing.time_cuda(
                  lib, reps=5, warmup=1))),
-             "shapes": f"({M_BW}, {N}) f32, {bw_probe.DEFAULT_ROWS_PER_CTA} "
-                       "rows per CTA"}
+             "shapes": f"({M_BW}, {N}) f32, {rpc} rows per CTA"}
     if name == "read_reduce":
         entry["sum_stage_launches"] = counts["read_reduce_sum"]
     entry["gbps"] = bound["bytes"] / entry["ms"] / 1e6
@@ -779,6 +833,7 @@ def main() -> int:
     phase_cholqr2(main_run["a"])
     phase_mfu()
     phase_qr_auto(gen)
+    phase_grad(gen)
     phase_gram_error(main_run["a"])
     phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4,
                        bw_run, inplace)

@@ -195,6 +195,55 @@ def test_panel_kernel_matches_plain_version(card, mode, n):
         assert validation.residual_accurate(a[t], q, r[t]) < tol
 
 
+# the kernel against its plain version: the two sum in other orders
+# (tensor-core fragments and warp butterflies against batched matmuls);
+# at the one-part bf16 modes a changed float32 sum can round a later
+# split differently, so those are held to the modes' own grade
+PANEL_MODES = {"fp32": 1e-5, "bf16x6_cor": 1e-5, "bf16x3_cor": 1e-4,
+               "bf16x3_nocor": 1e-4, "bf16": 5e-2, "bf16_nocor": 5e-2}
+
+
+@pytest.mark.parametrize("mode", list(PANEL_MODES))
+@pytest.mark.parametrize("rows", ["n", "2n", "max"])
+@pytest.mark.parametrize("n", [1, 16, 50, 64, 128])
+def test_panel_kernel_shapes_and_modes(card, n, rows, mode):
+    L = {"n": n, "2n": 2 * n, "max": panel_kernel.max_leaf_rows(n)}[rows]
+    a = _tiles(card, 6, L, n, seed=n + L)
+    qt, r = panel_kernel.panel_qr_batched(a, mode)
+    qt0, r0 = panel_kernel.panel_qr_reference(a, mode)
+    tol = PANEL_MODES[mode]
+    assert _rel(r, r0) <= tol and _rel(qt, qt0) <= tol
+    assert torch.equal(torch.tril(r, -1), torch.zeros_like(r))
+    for t in range(a.shape[0]):
+        q = qt[t].T
+        assert validation.orthogonality_accurate(q) < tol
+        assert validation.residual_accurate(a[t], q, r[t]) < tol
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor", "bf16"])
+def test_panel_kernel_zero_column_and_zero_rows(card, mode):
+    a = _tiles(card, 33, 200, 50, seed=7)
+    a[:, :, 9] = 0.0           # a zero column passes as H = I
+    a[:, 150:, :] = 0.0        # zero rows give exactly zero Q rows
+    qt, r = panel_kernel.panel_qr_batched(a, mode)
+    assert bool((qt[:, :, 150:] == 0).all())
+    assert bool((r[:, 9, 9] == 0).all())
+    assert bool(torch.isfinite(qt).all() and torch.isfinite(r).all())
+    tol = PANEL_MODES[mode]
+    for t in range(a.shape[0]):
+        assert validation.residual_accurate(a[t], qt[t].T, r[t]) < tol
+
+
+def test_panel_kernel_holds_the_tier4_leaf(card):
+    # plan_tree never builds leaves under 2n rows: tier 4 at n = 128 needs
+    # (256, 128) tiles
+    assert panel_kernel.max_leaf_rows(128) >= 256
+    a = _tiles(card, 4, 256, 128, seed=8)
+    qt, r = panel_kernel.panel_qr_batched(a, "bf16x6_cor")
+    qt0, r0 = panel_kernel.panel_qr_reference(a, "bf16x6_cor")
+    assert _rel(r, r0) <= 1e-5 and _rel(qt, qt0) <= 1e-5
+
+
 def test_panel_kernel_raises_on_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="n <="):
         panel_kernel.panel_qr_batched(_tiles(card, 2, 512, 160), "fp32")
@@ -238,6 +287,48 @@ def test_probes_match_plain_versions(card, m, n, rows_per_cta):
     s0 = bw_probe.read_reduce_reference(a)
     assert _rel(s, s0) <= 1e-7
     assert torch.equal(y, bw_probe.copy_reference(a))
+
+
+@pytest.mark.parametrize("rows_per_cta", [8, 16, 24, 2048, 4096, 8192])
+@pytest.mark.parametrize("m,n", [(1001, 100), ((1 << 14) + 3, 7),
+                                 (1 << 15, 128)])
+def test_copy_probe_bitwise_at_every_range(card, m, n, rows_per_cta):
+    # one contiguous range a CTA: ragged totals end inside a CTA's range
+    # and inside a float4
+    a = torch.from_numpy(np.random.default_rng(m).uniform(
+        -1, 1, (m, n)).astype(np.float32)).to(card)
+    assert torch.equal(bw_probe.copy(a, rows_per_cta),
+                       bw_probe.copy_reference(a))
+
+
+def _grad(entry, a, w, v, **kw):
+    a = a.detach().clone().requires_grad_()
+    q, r = entry(a, **kw)
+    assert q.grad_fn is not None and r.grad_fn is not None
+    (g,) = torch.autograd.grad((q.float() * w).sum() + (r.float() * v).sum(),
+                               a)
+    return g
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor"])
+@pytest.mark.parametrize("entry", ["tsqr", "qr_auto_fused"])
+def test_gradients_on_card_match_cpu(card, entry, mode):
+    import tsqr_tpu_torch
+    rng = np.random.default_rng(9)
+    m, n = 4096, 64
+    a, w = (torch.from_numpy(rng.uniform(-1, 1, (m, n)).astype(np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(rng.uniform(-1, 1, (n, n)).astype(np.float32))
+    fn = getattr(tsqr_tpu_torch, entry)
+    g_card = _grad(fn, a.to(card), w.to(card), v.to(card), mode=mode)
+    g_cpu = _grad(fn, a, w, v, mode=mode, device="cpu")
+    # the same rule on factors that agree to float32 grade, through
+    # R^{-1} of a well-conditioned A (kappa ~ 5)
+    assert _rel(g_card.cpu(), g_cpu) <= 1e-5
+    # a CPU tensor given to the card's entry gets its gradient on the CPU
+    g_moved = _grad(fn, a, w.to(card), v.to(card), mode=mode)
+    assert g_moved.device.type == "cpu"
+    assert _rel(g_moved, g_card.cpu()) <= 1e-6
 
 
 def test_probes_raise_on_what_they_do_not_take(card):

@@ -169,3 +169,21 @@ def test_status_helpers():
     status.print_banner(file=buf)
     assert "torch=" + torch.__version__ in buf.getvalue()
     assert "card=" in buf.getvalue()
+
+
+@pytest.mark.parametrize("source,define,names", [
+    ("stream_gram.cu", "N_PHASES", "PHASE_NAMES"),
+    ("panel_qr.cu", "N_PHASES", "PANEL_PHASES"),
+])
+def test_phase_names_match_the_kernels_timers(source, define, names):
+    # harness.phase_profile reads (CTAs, N_PHASES) int64 counters back: its
+    # names must be as many as the kernel's phases
+    import re
+    from pathlib import Path
+
+    from tsqr_tpu_torch.harness import phase_profile
+
+    text = (Path(phase_profile.__file__).parents[1] / "ops" / "csrc"
+            / source).read_text()
+    n = int(re.search(rf"#define {define} (\d+)", text).group(1))
+    assert len(getattr(phase_profile, names)) == n

@@ -50,6 +50,7 @@ def test_scan_sees_the_whole_port():
                  "tsqr_tpu_torch/core/blockqr.py",
                  "tsqr_tpu_torch/utils/device.py",
                  "tsqr_tpu_torch/core/auto.py",
+                 "tsqr_tpu_torch/core/diff.py",
                  "tsqr_tpu_torch/ops/bw_probe.py",
                  "tsqr_tpu_torch/harness/bw.py",
                  "tsqr_tpu_torch/harness/mfu.py",
@@ -59,3 +60,15 @@ def test_scan_sees_the_whole_port():
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("tsqr_tpu.modes")
     assert not _forbidden("tsqr_tpu_torch.modes")
+
+
+def test_port_exports_everything_the_jax_package_exports():
+    import tsqr_tpu
+    import tsqr_tpu_torch
+
+    assert set(tsqr_tpu.__all__) <= set(tsqr_tpu_torch.__all__)
+    for name in tsqr_tpu_torch.__all__:
+        assert hasattr(tsqr_tpu_torch, name), name
+    assert isinstance(tsqr_tpu_torch.__version__, str)
+    assert tsqr_tpu_torch.resolve("bf16x6_cor").mode.value == "bf16x6_cor"
+    assert isinstance(tsqr_tpu_torch.resolve("fp32"), tsqr_tpu_torch.Policy)

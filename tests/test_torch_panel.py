@@ -79,15 +79,18 @@ def test_wrapper_runs_the_plain_version_on_a_cpu_tensor():
 
 
 def test_kernel_range_from_its_shared_memory():
-    # the kernel's footprint: (n + 16)(L + 1) floats for the tile and one
-    # W-Y block, plus what does not grow with L; 227 KiB per block
-    assert panel_kernel.max_leaf_rows(128) == 328
-    assert panel_kernel.max_leaf_rows(64) == 656
+    # the kernel's footprint: the float32 tile at row stride
+    # round_up(L, 32) + 8 and one block's Y in bf16 parts, plus what does
+    # not grow with L; 227 KiB per block, and at most two rows a thread
+    # (L_MAX) in the column chain.  Tier 4 needs (256, 128) leaves.
+    assert panel_kernel.max_leaf_rows(128) == 288
+    assert panel_kernel.max_leaf_rows(64) == panel_kernel.L_MAX == 512
     for n in (1, 50, 64, 128):
         lm = panel_kernel.max_leaf_rows(n)
-        assert lm % 8 == 0 and lm >= 2 * n
+        assert lm % 8 == 0 and lm >= 2 * n and lm <= panel_kernel.L_MAX
         assert panel_kernel.smem_bytes(lm, n) <= 232448
-        assert panel_kernel.smem_bytes(lm + 8, n) > 232448
+        assert (lm == panel_kernel.L_MAX
+                or panel_kernel.smem_bytes(lm + 8, n) > 232448)
     with pytest.raises(ValueError, match="n <= 128"):
         panel_kernel.max_leaf_rows(129)
 

@@ -7,7 +7,8 @@ on the CUDA card: an input elsewhere is moved there (``fastqr_inplace``
 raises instead, since it writes Q over the caller's tensor), and
 without a card they raise ``RuntimeError``.  ``device="cpu"`` is the
 explicit request for the CPU, where every kernel runs its plain
-PyTorch version.
+PyTorch version.  ``fastqr``, ``tsqr``, ``qr`` and ``qr_auto_fused`` are
+differentiable in ``a`` (``core/diff.py``), as in the JAX package.
 """
 
 import torch
@@ -18,7 +19,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from tsqr_tpu_torch.modes import ComputeMode  # noqa: E402
+from tsqr_tpu_torch.modes import ComputeMode, Policy, resolve  # noqa: E402
 from tsqr_tpu_torch.core.auto import qr_auto, qr_auto_fused  # noqa: E402
 from tsqr_tpu_torch.core.blockqr import qr  # noqa: E402
 from tsqr_tpu_torch.core.cholqr import (  # noqa: E402
@@ -26,6 +27,9 @@ from tsqr_tpu_torch.core.cholqr import (  # noqa: E402
 from tsqr_tpu_torch.core.tsqr import tsqr  # noqa: E402
 from tsqr_tpu_torch.ops.panel_qr import panel_qr  # noqa: E402
 
-__all__ = ["ComputeMode", "qr_auto_fused", "qr_auto", "fastqr",
-           "fastqr_inplace", "tsqr", "qr", "panel_qr", "pack_panel",
-           "qr_packed", "unpack_panel"]
+# the port's own version: it moves with this package, not the JAX one
+__version__ = "0.1.0"
+
+__all__ = ["ComputeMode", "Policy", "resolve", "qr_auto_fused", "qr_auto",
+           "fastqr", "fastqr_inplace", "tsqr", "qr", "panel_qr",
+           "pack_panel", "qr_packed", "unpack_panel", "__version__"]

@@ -18,7 +18,7 @@ import math
 import torch
 
 from tsqr_tpu_torch import modes
-from tsqr_tpu_torch.core import blockqr, cholqr
+from tsqr_tpu_torch.core import blockqr, cholqr, diff
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.ops import gram_stream
 from tsqr_tpu_torch.utils import device as _device
@@ -112,6 +112,7 @@ def qr_auto(a: Tensor, mode="fp32", fast_method: str = "cholqr3",
     return q, r, "blockqr_tsqr"
 
 
+@diff.differentiable(unless=lambda b: b["return_info"])
 def qr_auto_fused(a: Tensor, mode="fp32",
                   fast_method: str = "cholqr1_fused",
                   fast_variant: str = "safe",
@@ -141,7 +142,8 @@ def qr_auto_fused(a: Tensor, mode="fp32",
     ``tsqr.DEFAULT_FANIN``).  The fused pipelines run where the method
     is fused and n <= 128; elsewhere their non-fused siblings.
 
-    Runs on the card unless ``device="cpu"``.
+    Runs on the card unless ``device="cpu"``.  Differentiable in ``a``
+    (``core/diff.py``) unless ``return_info``.
 
     Returns (q, r), or (q, r, info) with ``info["tier"]`` (an int) and
     ``info["kappa2_est"]`` (the (1, 1) tier-0 bound) when

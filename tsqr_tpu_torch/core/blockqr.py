@@ -30,7 +30,7 @@ from typing import Callable
 import torch
 
 from tsqr_tpu_torch import modes
-from tsqr_tpu_torch.core import cholqr
+from tsqr_tpu_torch.core import cholqr, diff
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.utils import device as _device
 
@@ -75,6 +75,7 @@ def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
     r[c0:c0 + w, c0:c0 + w] = r22
 
 
+@diff.differentiable
 def qr(a: Tensor,
        mode: modes.ComputeMode | str | modes.Policy = "fp32",
        reorth: bool = False,
@@ -87,7 +88,8 @@ def qr(a: Tensor,
        loop: str = "auto",
        device=None) -> tuple[Tensor, Tensor]:
     """Thin QR of any (m, n) matrix with m >= n: returns (Q (m, n),
-    R (n, n)).  Runs on the card unless ``device="cpu"``.
+    R (n, n)).  Runs on the card unless ``device="cpu"``.  Differentiable
+    in ``a`` (``core/diff.py``).
 
     panel_method: "tsqr" (the Householder tree; ``leaf_rows``,
     ``fanin``, ``impl`` and ``leaf_qr`` go to :func:`tsqr`) or a

@@ -29,6 +29,7 @@ from typing import Callable
 import torch
 
 from tsqr_tpu_torch import modes
+from tsqr_tpu_torch.core import diff
 from tsqr_tpu_torch.ops import gram_stream
 from tsqr_tpu_torch.utils import device as _device
 
@@ -243,7 +244,12 @@ def qr_packed(ap: Tensor, n: int, mode="fp32",
     """Thin QR of a packed panel (the view of :func:`pack_panel`), packed
     IO: returns (Q packed the same way, R (n, n)).  ``method`` is
     "cholqr1", "cholqr2" or "cholqr3", run on the unpacked rows; the zero
-    pad rows add nothing to any Gram and stay zero in Q."""
+    pad rows add nothing to any Gram and stay zero in Q.
+
+    Not differentiable by the entry rule of ``core/diff.py``, as in the
+    JAX package: the packed identity is Ap = Qp kron(I_p, R), not
+    A = QR.  Differentiate through :func:`fastqr` on the unpacked panel
+    instead."""
     rows, pn = ap.shape
     if pn % n:
         raise ValueError(f"packed width {pn} not a multiple of n={n}")
@@ -641,6 +647,7 @@ _METHODS = {"cholqr1": cholqr1, "cholqr2": cholqr2, "cholqr3": cholqr3,
             "rand_cholqr": rand_cholqr}
 
 
+@diff.differentiable
 def fastqr(a: Tensor, mode="fp32", method: str = "cholqr3",
            variant: str = "safe", device=None) -> tuple[Tensor, Tensor]:
     """Tall-skinny QR by one of the methods of ``_METHODS``: cholqr1/2/3
@@ -650,7 +657,7 @@ def fastqr(a: Tensor, mode="fp32", method: str = "cholqr3",
     only; past the kernel's range (n > 128) the fused methods run their
     non-fused siblings, "fast"/"fastest" dropping to the full-grade
     product and "compact"/"turbo" raising.  Runs on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  Differentiable in ``a`` (``core/diff.py``)."""
     a = _device.place(a, device, "fastqr")
     m, n = a.shape
     if m < n:

@@ -23,6 +23,7 @@ from typing import Callable
 import torch
 
 from tsqr_tpu_torch import modes
+from tsqr_tpu_torch.core import diff
 from tsqr_tpu_torch.ops import householder, panel_kernel
 from tsqr_tpu_torch.utils import device as _device
 
@@ -119,6 +120,8 @@ def _make_batched_qr(policy: modes.Policy, impl: str,
     return call
 
 
+@diff.differentiable(unless=lambda b: (not b["want_q"])
+                     or b["collect_level_q"])
 def tsqr(a: Tensor,
          mode: modes.ComputeMode | str | modes.Policy = "fp32",
          leaf_rows: int | None = None,
@@ -132,7 +135,9 @@ def tsqr(a: Tensor,
          seq_chunks: int | None = None,
          device=None):
     """Thin QR of a tall-skinny (m, n) matrix: returns (Q (m, n),
-    R (n, n)).  Runs on the card unless ``device="cpu"``.
+    R (n, n)).  Runs on the card unless ``device="cpu"``.  Differentiable
+    in ``a`` (``core/diff.py``) unless ``want_q`` is False or
+    ``collect_level_q`` is set.
 
     Args:
       a: (m, n) with m >= n.

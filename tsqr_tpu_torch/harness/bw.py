@@ -28,7 +28,7 @@ from tsqr_tpu_torch.utils import status, timing
 
 CSV_HEADER = "probe,elapsed_time,gbps,loops"
 READ_ROWS_PER_CTA = (2048, 4096, 8192, 16384)
-COPY_ROWS_PER_CTA = (2048, 4096, 8192)
+COPY_ROWS_PER_CTA = (8, 16, 2048, 4096)
 LOOPS = 10
 
 

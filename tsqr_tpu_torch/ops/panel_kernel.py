@@ -9,8 +9,8 @@ for a CUDA tensor and runs the plain PyTorch version
 launches the kernel or raises: there is no fallback.
 
 The kernel's shapes: n <= ``N_MAX`` (128), n <= L <= :func:`max_leaf_rows`
-(what one block's shared memory holds), W-Y blocks of ``BLOCK`` (16)
-columns; modes fp32, bf16, bf16_nocor, bf16x3_nocor, bf16x3_cor and
+(what one block's shared memory holds, and at most ``L_MAX``: two rows a
+thread in the column chain), W-Y blocks of ``BLOCK`` (16) columns; modes fp32, bf16, bf16_nocor, bf16x3_nocor, bf16x3_cor and
 bf16x6_cor.
 """
 
@@ -29,31 +29,44 @@ _dot_mode = gram_stream._dot_mode  # a product at a mode, split as B1's
 N_MAX = 128            # widest n
 BLOCK = 16             # columns per W-Y block
 _THREADS = 256
+L_MAX = 2 * _THREADS   # most rows: two a thread in the column chain
 _SMEM_MAX = 232448     # dynamic shared memory a block may use on sm_90
+_YS = 24               # bf16 a row of a Y part in shared memory
+
+# Preprocessor defines of the kernel build; harness/phase_profile.py sets
+# ("PANEL_QR_PROFILE",) to compile the phase timers in.
+BUILD_DEFINES: tuple[str, ...] = ()
 
 # Kernel launches, counted where the kernel is launched.
 LAUNCHES = 0
 
 
 def smem_bytes(L: int, n: int) -> int:
-    """Dynamic shared memory of one (L, n) tile's CTA (the layout in
-    ``panel_qr.cu``): the column-major tile with row stride L + 1, one
-    block's reflectors, the block products and their split parts, every
-    block's T, the diagonal of the reflectors and the warp sums."""
-    sl, nblk = L + 1, -(-n // BLOCK)
-    floats = (n * sl + BLOCK * sl + 4 * BLOCK * n + nblk * BLOCK * BLOCK
-              + n + 2 * (_THREADS // 32) + BLOCK)
-    return 4 * floats
+    """Dynamic shared memory of one (L, n) tile's CTA (``layout`` in
+    ``panel_qr.cu``): the column-major float32 tile (columns padded to a
+    multiple of 16, row stride round_up(L, 32) + 8), one block's Y in
+    three bf16 parts (rows padded to a multiple of 16, 24 bf16 a row),
+    W's parts, Y^T X, every block's T, the block's Y^T v, the
+    reflectors' diagonal and the column chain's double-buffered warp
+    partials and pivot row."""
+    ncp = -(-n // BLOCK) * BLOCK
+    lp = -(-L // 16) * 16
+    sl = -(-L // 32) * 32 + 8
+    return (ncp * sl * 4 + 3 * lp * _YS * 2 + 3 * BLOCK * (ncp + 8) * 2
+            + BLOCK * ncp * 4 + ncp * BLOCK * 4 + BLOCK * BLOCK * 4 + ncp * 4
+            + 2 * (_THREADS // 32) * BLOCK * 4 + 2 * BLOCK * 4)
 
 
 def max_leaf_rows(n: int) -> int:
-    """The largest L, a multiple of 8, whose (L, n) tile the kernel's
-    shared memory holds (328 at n = 128, 656 at n = 64)."""
+    """The largest L, a multiple of 8 and at most ``L_MAX``, whose (L, n)
+    tile the kernel's shared memory holds (288 at n = 128, 512 at
+    n = 64)."""
     if not 1 <= n <= N_MAX:
         raise ValueError(f"the panel kernel takes 1 <= n <= {N_MAX}, got {n}")
-    per_row = 4 * (n + BLOCK)
-    L = (_SMEM_MAX - smem_bytes(0, n)) // per_row
-    return L // 8 * 8
+    L = L_MAX
+    while smem_bytes(L, n) > _SMEM_MAX:
+        L -= 8
+    return L
 
 
 def _check(a: Tensor) -> None:
@@ -91,17 +104,22 @@ def panel_qr_reference(a: Tensor, mode="fp32",
             vnorm2 = norm2 + 2.0 * sign * norm * xj + norm2
             beta = torch.where(vnorm2 > 1e-30, 2.0 / vnorm2,
                                torch.zeros_like(vnorm2))
+            sn = sign * norm
             v = col.clone()
-            v[:, j] = xj + sign * norm
+            v[:, j] = xj + sn
+            # the dots D_c of the column with the block's columns (rows
+            # >= j); v's dot with column c is D_c + sign ||x|| x_jc, as the
+            # kernel forms it from one reduction a column
+            blk = x[:, :, c0:c0 + nb]
+            vdot = (torch.einsum("bi,bic->bc", col, blk)
+                    + sn[:, None] * x[:, j, c0:c0 + nb])
             if j + 1 < c0 + nb:  # rank-1 update of the block's later columns
-                blk = x[:, :, j + 1:c0 + nb]
-                w = torch.einsum("bi,bic->bc", v, blk)
-                x[:, :, j + 1:c0 + nb] = blk - (beta[:, None] * w)[:, None] \
-                    * v[:, :, None]
+                w = vdot[:, k + 1:]
+                x[:, :, j + 1:c0 + nb] = x[:, :, j + 1:c0 + nb] - (
+                    beta[:, None] * w)[:, None] * v[:, :, None]
             if k > 0:  # T[:k, k] = -beta T[:k, :k] (Y^T v)
-                ytv = torch.einsum("biq,bi->bq", y_all[:, :, c0:j], v)
                 t[:, :k, k] = -beta[:, None] * torch.einsum(
-                    "bqp,bp->bq", t[:, :k, :k], ytv)
+                    "bqp,bp->bq", t[:, :k, :k], vdot[:, :k])
             t[:, k, k] = beta
             y_all[:, :, j] = v
             x[:, j, j] = -sign * norm
@@ -125,7 +143,7 @@ def panel_qr_reference(a: Tensor, mode="fp32",
 def _lib():
     from tsqr_tpu_torch.ops import _build
 
-    lib = _build.load("panel_qr")
+    lib = _build.load("panel_qr", BUILD_DEFINES)
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.panel_qr_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
@@ -133,14 +151,16 @@ def _lib():
         lib.panel_qr_smem_bytes.argtypes = [ci, ci]
         for f in (lib.panel_qr_smem_bytes, lib.panel_qr_smem_max):
             f.restype = cll
-        for f in (lib.panel_qr_n_max, lib.panel_qr_block):
+        for f in (lib.panel_qr_n_max, lib.panel_qr_l_max, lib.panel_qr_block):
             f.restype = ci
         if (lib.panel_qr_n_max() != N_MAX or lib.panel_qr_block() != BLOCK
+                or lib.panel_qr_l_max() != L_MAX
                 or lib.panel_qr_smem_max() != _SMEM_MAX
                 or any(lib.panel_qr_smem_bytes(L, n) != smem_bytes(L, n)
-                       for L, n in ((256, 128), (200, 50)))):
+                       for L, n in ((256, 128), (200, 50), (512, 64)))):
             raise RuntimeError("panel_qr.cu and panel_kernel.py disagree on "
-                               "N_MAX / BLOCK / the shared-memory layout")
+                               "N_MAX / L_MAX / BLOCK / the shared-memory "
+                               "layout")
         lib._typed = True
     return lib
 
@@ -151,7 +171,7 @@ def _panel_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
     B, L, n = a.shape
     if n > N_MAX:
         raise ValueError(f"the panel kernel takes n <= {N_MAX}, got {n}")
-    if L > max_leaf_rows(n):
+    if L > max_leaf_rows(n):  # also L <= L_MAX
         raise ValueError(f"the panel kernel holds L <= {max_leaf_rows(n)} "
                          f"rows at n={n} in shared memory, got L={L}")
     if a.dtype != torch.float32:
