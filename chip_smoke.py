@@ -671,7 +671,7 @@ def probe_entry(name: str, counts: dict, gen) -> dict:
         fn, plain = bw_probe.copy, bw_probe.copy_reference
         lib = (lambda: torch.mul(a, bw_probe.COPY_SCALE))
         replaces = "scripts/bw_experiments.py:74 (B6)"
-        rpc = bw_probe.COPY_ROWS_PER_CTA
+        rpc = bw_probe.COPY_DEFAULT_ROWS_PER_CTA
     got, ref = fn(a), plain(a)
     torch.cuda.synchronize()
     err = float((got.double() - ref.double()).abs().max())

@@ -191,3 +191,23 @@ def test_rule_only_where_something_is_differentiated():
     q, _ = tsqr_tpu_torch.qr(a.clone().requires_grad_(), "fp32",
                              device="cpu")
     assert "EntryQR" in type(q.grad_fn).__name__
+    # ``a`` by keyword is looked at the same way
+    q, _ = tsqr_tpu_torch.fastqr(a=a.clone().requires_grad_(), mode="fp32",
+                                 device="cpu")
+    assert "EntryQR" in type(q.grad_fn).__name__
+    q, _ = tsqr_tpu_torch.fastqr(a=a, mode="fp32", device="cpu")
+    assert q.grad_fn is None
+
+
+@pytest.mark.parametrize("entry", ["fastqr", "tsqr", "qr", "qr_auto_fused"])
+def test_wrapped_entry_is_the_plain_entry(entry):
+    # harness.stream_calls times each exported entry against its
+    # ``__wrapped__``: the same factors, with no rule attached
+    a = torch.from_numpy(_inputs(96, 12, seed=7)[0]).requires_grad_()
+    fn = getattr(tsqr_tpu_torch, entry)
+    q, r = fn(a, "fp32", device="cpu")
+    with torch.no_grad():
+        q0, r0 = fn.__wrapped__(a, "fp32", device="cpu")
+    assert "EntryQR" in type(q.grad_fn).__name__
+    assert q0.grad_fn is None and r0.grad_fn is None
+    assert torch.equal(q.detach(), q0) and torch.equal(r.detach(), r0)

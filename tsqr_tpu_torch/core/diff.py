@@ -135,25 +135,25 @@ def differentiable(fn=None, *, unless=None):
     unwrapped: for flag combinations that change what it returns (e.g.
     ``return_info=True``), which keep their plain behaviour.  ``a`` is
     placed on the entry's device before the rule, by a differentiable
-    move.  A call with nothing to differentiate runs the entry unwrapped:
-    the rule's bookkeeping is host time, which the ladder's host syncs
-    leave exposed on every call."""
+    move.  A call whose ``a`` can carry no derivative goes straight to
+    the entry, before any argument is bound: the ladder's host syncs
+    leave every microsecond of host time a call exposed."""
     if fn is None:
         return functools.partial(differentiable, unless=unless)
     sig = inspect.signature(fn)
+    first = next(iter(sig.parameters))
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
+        a = args[0] if args else kwargs.get(first)
+        if not (isinstance(a, Tensor) and _differentiating(a)):
+            return fn(*args, **kwargs)
         ba = sig.bind(*args, **kwargs)
         ba.apply_defaults()
         if unless is not None and unless(ba.arguments):
             return fn(*args, **kwargs)
-        first = next(iter(ba.arguments))
-        a = _device.place(ba.arguments[first], ba.arguments.get("device"),
-                          fn.__name__)
+        a = _device.place(a, ba.arguments.get("device"), fn.__name__)
         ba.arguments[first] = a
-        if not _differentiating(a):
-            return fn(*ba.args, **ba.kwargs)
         return _EntryQR.apply(a, fn, ba.args[1:], ba.kwargs)
 
     return wrapper

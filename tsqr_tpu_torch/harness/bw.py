@@ -3,7 +3,8 @@ write of A reach, beside the stream kernel's passes over the same A.
 
 Counterpart of ``scripts/bw_experiments.py``.  It runs the two probes of
 ``ops/bw_probe.py`` at (2^22, 128) float32 ((2^21, 128) with ``--quick``)
-over a sweep of rows per CTA (the reference's ``chunk``), then the
+over a sweep of rows per CTA (the reference's ``chunk``), ``torch.mul``
+by the copy's scale (the library call of the same copy), then the
 stream kernel once per Gram mode (bf16x6_cor, fp32, and bf16 on a bf16
 A) and once as a bf16x6_cor Q pass, and prints the CSV
 ``probe,elapsed_time,gbps,loops`` to stdout: elapsed_time is the median
@@ -55,6 +56,8 @@ def sweep(m: int = 1 << 22, n: int = 128, seed: int = 0,
     for rpc in COPY_ROWS_PER_CTA:
         rows.append(_row(f"copy_rows_per_cta={rpc}", 2 * nbytes,
                          lambda rpc=rpc: bw_probe.copy(a32, rpc), out, loops))
+    rows.append(_row("library_torch.mul", 2 * nbytes,
+                     lambda: torch.mul(a32, bw_probe.COPY_SCALE), out, loops))
     for mode in ("bf16x6_cor", "fp32"):
         rows.append(_row(f"gram_{mode}", nbytes,
                          lambda mode=mode: gram_stream.gram_stream(a32, mode),

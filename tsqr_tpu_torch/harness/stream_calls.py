@@ -1,15 +1,30 @@
-"""Device time of each call kind of the stream kernel, per mode, on the card.
+"""Device time of the main paths' kernel calls, per mode, on the card.
 
-Times ``ops.gram_stream.stream`` at (m, 128) float32 with CUDA events:
-the Gram pass and the Q pass at fp32, bf16, bf16x3_cor and bf16x6_cor,
-the ``compact_final`` pass (a bf16x6_cor dot, a residual bf16x3_cor dot,
-Q and the Gram), the Q pass written over its input (``alias_q``), the
-library products ``a.T @ a`` and ``a @ rinv`` and the reduction stage.  Prints one JSON line with the card's name and power
-limit:
+Times with CUDA events, at (m, 128) float32:
+
+* ``ops.gram_stream.stream``: the Gram pass and the Q pass at fp32,
+  bf16, bf16x3_cor and bf16x6_cor, the ``compact_final`` pass (a
+  bf16x6_cor dot, a residual bf16x3_cor dot, Q and the Gram), the Q pass
+  written over its input (``alias_q``), the library products ``a.T @ a``
+  and ``a @ rinv`` and the reduction stage;
+* ``ops.panel_kernel.panel_qr_batched`` on the tier-4 path's leaves (the
+  (m / 256, 256, 128) leaves of A with column 33 zeroed) per mode, and on
+  (m / 512, 512, 64) leaves at bf16x6_cor, beside batched
+  ``torch.linalg.qr``;
+* the tier-1 ladder ``qr_auto_fused(a, "bf16x6_cor")`` as exported and
+  unwrapped (its ``__wrapped__``, without the gradient rule's decorator),
+  in turns over three rounds: the decorator's host time on a call with
+  nothing to differentiate.
+
+Prints one JSON line with the card's name and power limit:
 
     python -m tsqr_tpu_torch.harness.stream_calls [--m 1048576] [--reps 7]
+        [--label X]
 
-Nothing here is compared with a plain version: ``chip_smoke.py`` does that.
+The module uses only calls that the package had before the panel
+kernel's redesign, so a copy of it can time an older checkout and the
+current one in turns on one card.  Nothing here is compared with a
+plain version: ``chip_smoke.py`` does that.
 """
 
 from __future__ import annotations
@@ -23,6 +38,8 @@ import numpy as np
 import torch
 
 MODES = ("fp32", "bf16", "bf16x3_cor", "bf16x6_cor")
+PANEL_MODES = ("bf16x6_cor", "bf16x3_cor", "fp32", "bf16")
+LADDER_ROUNDS = 3
 
 
 def card() -> str:
@@ -81,6 +98,53 @@ def sweep(m: int, n: int = 128, reps: int = 7) -> dict:
     out["reduce partials.sum(0)"] = float(np.median(timing.time_cuda(
         lambda: part.sum(0), reps=reps, warmup=2)))
     out["reduce_shape"] = list(part.shape)
+    del a_alias, part
+    out.update(ladder_sweep(a, reps))
+    a[:, 33] = 0.0   # the tier-4 cell's input
+    out.update(panel_sweep(a, reps))
+    return out
+
+
+def panel_sweep(a: torch.Tensor, reps: int) -> dict:
+    """The panel kernel per mode on A's (m / 256, 256, 128) leaves and at
+    (m / 512, 512, 64) bf16x6_cor, beside batched torch.linalg.qr."""
+    from tsqr_tpu_torch.ops import panel_kernel
+    from tsqr_tpu_torch.utils import timing
+
+    def ms(fn, r=reps):
+        return float(np.median(timing.time_cuda(fn, reps=r, warmup=1)))
+
+    leaves = a.view(-1, 256, a.shape[1])
+    shape = tuple(leaves.shape)
+    out = {f"panel {shape} {md}": ms(
+        lambda md=md: panel_kernel.panel_qr_batched(leaves, md))
+        for md in PANEL_MODES}
+    out[f"panel {shape} library torch.linalg.qr"] = ms(
+        lambda: torch.linalg.qr(leaves), 3)
+    leaves64 = a[:, :64].reshape(-1, 512, 64)
+    out[f"panel {tuple(leaves64.shape)} bf16x6_cor"] = ms(
+        lambda: panel_kernel.panel_qr_batched(leaves64, "bf16x6_cor"))
+    return out
+
+
+def ladder_sweep(a: torch.Tensor, reps: int) -> dict:
+    """The tier-1 ladder as exported and unwrapped, in turns: the median
+    of each round's median ms, and every round's."""
+    import tsqr_tpu_torch
+    from tsqr_tpu_torch.utils import timing
+
+    entry = tsqr_tpu_torch.qr_auto_fused
+    entries = {"ladder tier 1": entry,
+               "ladder tier 1 unwrapped": getattr(entry, "__wrapped__",
+                                                  entry)}
+    rounds: dict = {k: [] for k in entries}
+    for _ in range(LADDER_ROUNDS):
+        for k, fn in entries.items():
+            rounds[k].append(float(np.median(timing.time_cuda(
+                lambda fn=fn: fn(a, "bf16x6_cor"), reps=reps + 2,
+                warmup=2))))
+    out = {k: float(np.median(v)) for k, v in rounds.items()}
+    out.update({f"{k} rounds": v for k, v in rounds.items()})
     return out
 
 

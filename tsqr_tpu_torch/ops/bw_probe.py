@@ -21,16 +21,12 @@ Tensor = torch.Tensor
 
 COPY_SCALE = 1.0 + 2.0 ** -23   # the float32 nearest 1.0000001
 DEFAULT_ROWS_PER_CTA = 4096
-COPY_ROWS_PER_CTA = 8           # the copy's default: many short CTAs
+COPY_DEFAULT_ROWS_PER_CTA = 8   # the copy's default: many short CTAs
 
 # Kernel launches, counted where each kernel is launched.
 READ_LAUNCHES = 0       # bw_read_kernel
 READ_SUM_LAUNCHES = 0   # bw_read_sum_kernel
 COPY_LAUNCHES = 0       # bw_copy_kernel
-
-# Preprocessor defines of the kernel build; harness/kernel_calls.py sets
-# the copy's variants (BW_COPY_LOAD, BW_COPY_STORE, BW_COPY_THREADS).
-BUILD_DEFINES: tuple[str, ...] = ()
 
 
 def read_reduce_reference(a: Tensor) -> Tensor:
@@ -48,7 +44,7 @@ def copy_reference(a: Tensor) -> Tensor:
 def _lib():
     from tsqr_tpu_torch.ops import _build
 
-    lib = _build.load("bw_probe", BUILD_DEFINES)
+    lib = _build.load("bw_probe")
     if not getattr(lib, "_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bw_read_launch.argtypes = [vp, vp, cll, ci, cll, ci, vp]
@@ -113,7 +109,8 @@ def read_reduce(a: Tensor,
     return out
 
 
-def copy(a: Tensor, rows_per_cta: int = COPY_ROWS_PER_CTA) -> Tensor:
+def copy(a: Tensor,
+         rows_per_cta: int = COPY_DEFAULT_ROWS_PER_CTA) -> Tensor:
     """y = A * c (c = ``COPY_SCALE``) into a new float32 tensor: one read
     and one write of A, bit for bit the plain version's.  On the card each
     CTA streams ``rows_per_cta`` contiguous rows."""

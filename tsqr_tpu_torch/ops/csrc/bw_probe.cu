@@ -30,8 +30,8 @@
 //   the caller's default is the smallest, 8 rows (4 KB at n = 128): the
 //   card streams best with many short-lived CTAs walking memory in order,
 //   as torch.mul's elementwise kernel does.  Measured at (2^22, 128)
-//   (PERF.md): 8 rows a CTA runs at torch.mul's time within the run's
-//   noise; 2048-4096 rows a CTA ran ~6 % slower whatever the cache hints,
+//   (PERF.md): 8 rows a CTA runs within a few percent of torch.mul's
+//   time; 2048-4096 rows a CTA ran ~6 % slower whatever the cache hints,
 //   as did the first version's grid-stride loop over 1024 CTAs.  Its one
 //   float32 multiply (__fmul_rn) gives the plain version's bits.
 
@@ -41,20 +41,6 @@
 #define THREADS 256
 #define UNROLL 8        // float4 loads in flight per thread
 #define SUM_WARPS 32    // warps of a summing CTA (one per partial residue)
-
-// Build-time variants of the copy, timed by harness/kernel_calls.py
-// --copy-variants (the shipped build takes the defaults): BW_COPY_LOAD 0
-// ld.global.nc, 1 plain, 2 ld.global.cs; BW_COPY_STORE 0 st.global.cs,
-// 1 plain; BW_COPY_THREADS a CTA's threads.
-#ifndef BW_COPY_LOAD
-#define BW_COPY_LOAD 0
-#endif
-#ifndef BW_COPY_STORE
-#define BW_COPY_STORE 0
-#endif
-#ifndef BW_COPY_THREADS
-#define BW_COPY_THREADS THREADS
-#endif
 
 // partials[b][e] = sum over the 8-row groups g of CTA b of A[g 8n + e], in
 // float64, e < 8n; CTA b covers groups [b gpc, (b + 1) gpc).  a4 is A as
@@ -116,62 +102,43 @@ bw_read_sum_kernel(const double* __restrict__ partials,
   }
 }
 
-__device__ __forceinline__ float4 copy_load(const float4* p) {
-#if BW_COPY_LOAD == 1
-  return *p;
-#elif BW_COPY_LOAD == 2
-  return __ldcs(p);
-#else
-  return __ldg(p);
-#endif
-}
-
-__device__ __forceinline__ void copy_store(float4* p, float4 v) {
-#if BW_COPY_STORE == 1
-  *p = v;
-#else
-  __stcs(p, v);
-#endif
-}
-
 // y = x * c over `total` floats.  CTA b covers its own contiguous range
 // of per_cta floats (rows_per_cta rows): float4s with up to UNROLL loads
 // in flight a thread, neighbouring threads on neighbouring float4s, then
 // the scalar tail in the last CTA.  Loads go through the read-only path
 // (ld.global.nc), stores carry the streaming hint (st.global.cs).
-__global__ void __launch_bounds__(BW_COPY_THREADS)
+__global__ void __launch_bounds__(THREADS)
 bw_copy_kernel(const float* __restrict__ x, float* __restrict__ y,
                long long total, long long per_cta, float c) {
-  constexpr int NT = BW_COPY_THREADS;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
   const long long lo = (long long)blockIdx.x * per_cta;
   const long long hi = lo + per_cta < total ? lo + per_cta : total;
   const long long e4 = hi / 4;  // lo is a multiple of 4
   long long i = lo / 4 + threadIdx.x;
-  for (; i + (UNROLL - 1) * NT < e4; i += UNROLL * NT) {
+  for (; i + (UNROLL - 1) * THREADS < e4; i += UNROLL * THREADS) {
     float4 v[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) v[u] = copy_load(x4 + i + u * NT);
+    for (int u = 0; u < UNROLL; ++u) v[u] = __ldg(x4 + i + u * THREADS);
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       v[u].x = __fmul_rn(v[u].x, c);
       v[u].y = __fmul_rn(v[u].y, c);
       v[u].z = __fmul_rn(v[u].z, c);
       v[u].w = __fmul_rn(v[u].w, c);
-      copy_store(y4 + i + u * NT, v[u]);
+      __stcs(y4 + i + u * THREADS, v[u]);
     }
   }
-  for (; i < e4; i += NT) {
-    float4 v = copy_load(x4 + i);
+  for (; i < e4; i += THREADS) {
+    float4 v = __ldg(x4 + i);
     v.x = __fmul_rn(v.x, c);
     v.y = __fmul_rn(v.y, c);
     v.z = __fmul_rn(v.z, c);
     v.w = __fmul_rn(v.w, c);
-    copy_store(y4 + i, v);
+    __stcs(y4 + i, v);
   }
   if (hi == total)
-    for (long long j = e4 * 4 + threadIdx.x; j < total; j += NT)
+    for (long long j = e4 * 4 + threadIdx.x; j < total; j += THREADS)
       y[j] = __fmul_rn(x[j], c);
 }
 
@@ -205,7 +172,7 @@ int bw_copy_launch(const void* x, void* y, long long total, long long per_cta,
       (long long)grid * per_cta < total || (uintptr_t)x % 16 ||
       (uintptr_t)y % 16)
     return (int)cudaErrorInvalidValue;
-  bw_copy_kernel<<<grid, BW_COPY_THREADS, 0, (cudaStream_t)stream>>>(
+  bw_copy_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(x), static_cast<float*>(y), total, per_cta,
       c);
   return (int)cudaGetLastError();
