@@ -8,9 +8,13 @@ BlockQR past one panel at (2^18, 512), run the measurement path (the
 bandwidth sweep of ``harness.bw`` and the ``harness.mfu`` sweep), the
 in-place QR at (2^22, 128), every cholqr2_fused variant and ``qr_auto``,
 take gradients through the entry points on the card (the ``grad`` phase:
-the ladder, the tree and BlockQR, held against the CPU's), time the stream
-kernel's call kinds beside those of the kernel before its redesign, and
-print the ``kernels`` JSON line and a last JSON line with the device.
+the ladder, the tree and BlockQR, held against the CPU's), run the five
+QR updates at (2^20, 128) (the ``update`` phase), the reference's
+accuracy experiments at its sizes (the ``harness`` phase) and the phase
+breakdowns and ``torch.profiler`` traces of tier 4 and BlockQR (the
+``profile`` phase), time the stream kernel's call kinds beside those of
+the kernel before its redesign, and print the ``kernels`` JSON line and
+a last JSON line with the device.
 
     python3 chip_smoke.py [--seed N]
 
@@ -35,7 +39,12 @@ import torch  # noqa: E402
 
 import tsqr_tpu_torch  # noqa: E402
 from tsqr_tpu_torch.harness import bw, flops, mfu  # noqa: E402
-from tsqr_tpu_torch.core import cholqr  # noqa: E402
+from tsqr_tpu_torch.harness import accuracy, cond, eval_q  # noqa: E402
+from tsqr_tpu_torch.harness import compare as compare_mod  # noqa: E402
+from tsqr_tpu_torch.harness import main as harness_main  # noqa: E402
+from tsqr_tpu_torch.harness import profile  # noqa: E402
+from tsqr_tpu_torch.core import auto, cholqr, update  # noqa: E402
+from tsqr_tpu_torch.utils import experimental  # noqa: E402
 from tsqr_tpu_torch.core import tsqr as tsqr_mod  # noqa: E402
 from tsqr_tpu_torch.ops import _build, bw_probe, gram_stream as gs  # noqa: E402
 from tsqr_tpu_torch.ops import panel_kernel as pk  # noqa: E402
@@ -84,6 +93,17 @@ M_GRAD, N_GRAD = 1 << 14, 64
 GRAD_CASES = (("qr_auto_fused", "bf16x6_cor"), ("qr_auto_fused", "fp32"),
               ("tsqr", "bf16x6_cor"), ("qr", "bf16x6_cor"))
 GRAD_TOL = 1e-5
+# the update phase: the bench's input, its updates, and the CPU check's rows
+UPDATES = ("append_rows", "append_cols", "delete_cols", "delete_rows",
+           "rank_update")
+UPDATE_MODES = ("bf16x6_cor", "fp32")
+P_ROWS, P_COLS, DROP_COLS, RANK = 1 << 14, 16, (0, 63, 127), 8
+M_UPDATE_CPU = 4096
+UPDATE_TOL = 1e-5    # orthogonality and residual of every updated factor
+# the harness phase: the reference's cond grid (m = 2^15, n = 2^7,
+# kappa = 2^2 .. 2^15) and the full accuracy grid's widest corner
+M_REF, N_REF_WIDE = 1 << 15, 1024
+CORRECTED_ORTH_MAX = 1e-5   # what bf16x6_cor promises
 
 
 def rel(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -629,6 +649,217 @@ def phase_grad(gen) -> None:
                       "launches": counts, "cases": out}), flush=True)
 
 
+def update_inputs(m: int, p_rows: int, gen) -> dict:
+    """The extra operands of the five updates of an (m, N) factorization,
+    uniform[-1, 1] from ``gen``, on its device: ``p_rows`` rows to append
+    (and as many to delete), P_COLS columns, a rank-RANK U V^T."""
+    dev = gen.device
+
+    def u(*shape):
+        return torch.empty(*shape, device=dev).uniform_(-1, 1, generator=gen)
+
+    return {"b_rows": u(p_rows, N), "b_cols": u(m, P_COLS), "u": u(m, RANK),
+            "v": u(N, RANK)}
+
+
+def apply_update(name: str, a, q, r, x: dict, mode: str, device=None):
+    """(modified A, Q', R') of one update of A = Q R."""
+    p_del = x["b_rows"].shape[0]
+    keep = [j for j in range(N) if j not in DROP_COLS]
+    if name == "append_rows":
+        return (torch.cat([a, x["b_rows"]]), *update.qr_append_rows(
+            q, r, x["b_rows"], mode, device=device))
+    if name == "append_cols":
+        return (torch.cat([a, x["b_cols"]], dim=1), *update.qr_append_cols(
+            q, r, x["b_cols"], mode, device=device))
+    if name == "delete_cols":
+        return (a[:, keep], *update.qr_delete_cols(q, r, DROP_COLS, mode,
+                                                   device=device))
+    if name == "delete_rows":
+        return (a[p_del:], *update.qr_delete_rows(q, r, p_del, mode,
+                                                  device=device))
+    return (a + x["u"] @ x["v"].T, *update.qr_rank_update(
+        q, r, x["u"], x["v"], mode, device=device))
+
+
+def sign_fixed(r, ref):
+    """R with its rows' signs made those of ``ref``'s diagonal: two
+    Householder factorizations of one matrix agree up to them."""
+    s = torch.sign(torch.diagonal(r)) * torch.sign(torch.diagonal(ref))
+    return r * s[:, None]
+
+
+def phase_update(seed: int) -> None:
+    """The five updates of core/update.py on the bench's (2^20, 128)
+    input in each mode: each held to the device metrics, beside a fresh
+    qr of the modified matrix (its metrics, R up to row signs, its time),
+    and to the same update on the CPU at (4096, 128) from the same
+    factors."""
+    t0 = time.perf_counter()
+    out = {}
+    for mode in UPDATE_MODES:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        a = torch.empty(M_MAIN, N, device="cuda").uniform_(-1, 1,
+                                                           generator=gen)
+        x = update_inputs(M_MAIN, P_ROWS, gen)
+        q, r = tsqr_tpu_torch.qr(a, mode)
+        gen_cpu = torch.Generator().manual_seed(seed)
+        a_s = torch.empty(M_UPDATE_CPU, N).uniform_(-1, 1, generator=gen_cpu)
+        x_s = update_inputs(M_UPDATE_CPU, M_UPDATE_CPU // 8, gen_cpu)
+        q_s, r_s = tsqr_tpu_torch.qr(a_s, mode, device="cpu")
+        for name in UPDATES:
+            torch.cuda.synchronize()
+            reset_counts()
+            a2, q2, r2 = apply_update(name, a, q, r, x, mode)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            orth = float(validation.orthogonality_wide_device(q2))
+            res = float(validation.residual_device_chunked(a2, q2, r2))
+            qf, rf = tsqr_tpu_torch.qr(a2, mode)
+            fresh = {"orthogonality": float(
+                validation.orthogonality_wide_device(qf)),
+                "residual": float(validation.residual_device_chunked(
+                    a2, qf, rf)),
+                "r_rel_diff": rel(sign_fixed(r2, rf), rf)}
+            del qf, rf
+            upd_ms = timing.time_cuda(
+                lambda: apply_update(name, a, q, r, x, mode), reps=3,
+                warmup=1)
+            fresh_ms = timing.time_cuda(
+                lambda: tsqr_tpu_torch.qr(a2, mode), reps=3, warmup=1)
+            # the same update of the same CPU factors, on the card and
+            # on the CPU
+            _, q_c, r_c = apply_update(name, a_s.cuda(), q_s.cuda(),
+                                       r_s.cuda(),
+                                       {k: v.cuda() for k, v in x_s.items()},
+                                       mode)
+            _, q_h, r_h = apply_update(name, a_s, q_s, r_s, x_s, mode,
+                                       device="cpu")
+            tol = auto._TOL[auto.M(mode)]
+            cpu = {"r_rel_diff": rel(r_c.cpu(), r_h),
+                   "q_rel_diff": rel(q_c.cpu(), q_h)}
+            row = {"shape": list(q2.shape), "orthogonality": orth,
+                   "residual": res, "launches": counts,
+                   "ms_median": float(np.median(upd_ms)), "ms": upd_ms,
+                   "fresh_qr_ms_median": float(np.median(fresh_ms)),
+                   "fresh_qr": fresh, "vs_cpu_4096": cpu, "tol": tol}
+            out[f"{name} {mode}"] = row
+            print(json.dumps({"update": f"{name} {mode}", **row}),
+                  flush=True)
+            if not (orth < UPDATE_TOL and res < UPDATE_TOL):
+                raise AssertionError(f"update {name} {mode}: orth "
+                                     f"{orth:.2e} residual {res:.2e}")
+            if not (cpu["r_rel_diff"] <= tol and cpu["q_rel_diff"] <= tol):
+                raise AssertionError(f"update {name} {mode} against the "
+                                     f"CPU: {cpu} (tol {tol})")
+            if name != "delete_rows" and counts["panel_qr"] < 1:
+                raise AssertionError(f"update {name} {mode} launched no "
+                                     f"panel kernel: {counts}")
+            del a2, q2, r2
+        del a, q, r, x
+    print(json.dumps({"update_path": f"core/update.py on ({M_MAIN}, {N}) "
+                      f"f32, modes {list(UPDATE_MODES)}",
+                      "cases": len(out), "max_orthogonality": max(
+                          v["orthogonality"] for v in out.values()),
+                      "max_residual": max(v["residual"]
+                                          for v in out.values()),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def check_corrected(rows: list[dict], what: str) -> float:
+    """Largest orthogonality of the bf16x6_cor rows; raises above the
+    mode's promise."""
+    orths = [r["orthogonality"] if "orthogonality" in r
+             else math.hypot(r["diag"], r["offdiag"])
+             for r in rows if r["compute_mode"] == "bf16x6_cor"]
+    worst = max(orths)
+    if not worst < CORRECTED_ORTH_MAX:
+        raise AssertionError(f"{what}: a bf16x6_cor row's orthogonality "
+                             f"{worst:.2e} >= {CORRECTED_ORTH_MAX}")
+    return worst
+
+
+def phase_harness(seed: int) -> None:
+    """The reference's accuracy experiments at its sizes: the cond sweep,
+    the quick accuracy grid and the full grid's widest corner, eval_q at
+    n = 1024, the float64 golden comparison and the fp16-range study on
+    the tier-1 input.  Each CSV block goes to stdout with its header."""
+    reset_counts()
+    t0 = time.perf_counter()
+    conds = [2.0 ** k for k in range(2, 16)]
+    cond_rows, e1 = cond.sweep(M_REF, N, conds, ["fp32", "bf16x6_cor"],
+                               trials=1, seed=seed)
+    acc_rows, e2 = accuracy.sweep(harness_main.QUICK_MS,
+                                  harness_main.QUICK_NS, harness_main.MODES,
+                                  trials=4, seed=seed)
+    wide_rows, e3 = accuracy.sweep([M_REF], [N_REF_WIDE], ["bf16x6_cor"],
+                                   reorths=(False, True), trials=2,
+                                   seed=seed)
+    if e1 or e2 or e3:
+        raise AssertionError(f"harness sweep errors: {e1 + e2 + e3}")
+    q_rows = eval_q.sweep(harness_main.QUICK_MS, N_REF_WIDE,
+                          ["fp32", "bf16x6_cor"], seed=seed)
+    golden = compare_mod.compare_to_fp64_golden(M_REF, N, MODE, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.empty(M_MAIN, N, device="cuda").uniform_(-1, 1, generator=gen)
+    study = experimental.fp16_range_study(
+        a, lambda x: tsqr_tpu_torch.qr_auto_fused(x, MODE))
+    del a
+    worst = {"cond": check_corrected(cond_rows, "cond"),
+             "accuracy": check_corrected(acc_rows + wide_rows, "accuracy"),
+             "eval_q": check_corrected(q_rows, "eval_q")}
+    if not (golden["r_diag_max_rel_diff"] < 1e-5
+            and study["orthogonality"] < CORRECTED_ORTH_MAX
+            and study["orthogonality_fp16_range"] < CORRECTED_ORTH_MAX):
+        raise AssertionError(f"golden {golden}, fp16 study {study}")
+    print(json.dumps({"harness": {
+        "rows": {"cond": len(cond_rows), "accuracy": len(acc_rows)
+                 + len(wide_rows), "eval_q": len(q_rows)},
+        "bf16x6_cor_max_orthogonality": worst,
+        "compare_to_fp64_golden": {"shape": [M_REF, N], "mode": MODE,
+                                   **golden},
+        "fp16_range_study": {"shape": [M_MAIN, N], "qr": "qr_auto_fused",
+                             **study},
+        "launches": read_counts(),
+        "seconds": time.perf_counter() - t0}}), flush=True)
+
+
+def phase_profile(tier4: dict) -> None:
+    """BlockQR's ablation breakdown at (2^18, 512) fp32, the tree's
+    compute-R / compute-Q split at (2^20, 128), and one tier-4 ladder
+    call and one qr at (2^18, 512) under torch.profiler: each trace's
+    kernel count, device-busy share and three longest kernels."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    bd = profile.blockqr_breakdown(M_WIDE, N_WIDE, "fp32", out=sys.stdout)
+    split = profile.tsqr_phase_split(M_MAIN, N, "fp32", out=sys.stdout)
+    wide = torch.rand(M_WIDE, N_WIDE, device="cuda") * 2 - 1
+    traces = {}
+    with tempfile.TemporaryDirectory() as logdir:
+        calls = {
+            "tier4_ladder": lambda: tsqr_tpu_torch.qr_auto_fused(
+                tier4["a"], MODE),
+            "qr_wide": lambda: tsqr_tpu_torch.qr(wide, "fp32",
+                                                 reorth=True)}
+        for what, call in calls.items():
+            call()  # warm
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with profile.trace(logdir) as tr:
+                call()
+            traces[what] = {"trace_mb": os.path.getsize(tr.path) / 2**20,
+                            "traced_s": time.perf_counter() - t1,
+                            **tr.summary(top=3)}
+    del wide
+    print(json.dumps({"profile": {
+        "blockqr_breakdown": {"shape": [M_WIDE, N_WIDE], "mode": "fp32",
+                              **bd},
+        "tsqr_phase_split": {"shape": [M_MAIN, N], "mode": "fp32", **split},
+        "traces": traces, "seconds": time.perf_counter() - t0}}),
+        flush=True)
+
+
 def panel_entry(tier4: dict) -> dict:
     """The panel kernel at the tier-4 path's leaf shape: the zero-column
     input cut into its leaves, as the first tree's leaf launch sees it."""
@@ -835,6 +1066,9 @@ def main() -> int:
     phase_qr_auto(gen)
     phase_grad(gen)
     phase_gram_error(main_run["a"])
+    phase_update(args.seed)
+    phase_harness(args.seed)
+    phase_profile(tier4)
     phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4,
                        bw_run, inplace)
     print(json.dumps({"ok": True, "device": {

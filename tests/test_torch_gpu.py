@@ -339,3 +339,68 @@ def test_probes_raise_on_what_they_do_not_take(card):
         bw_probe.copy(a.view(-1)[1:1 + 64 * 128].view(64, 128))
     with pytest.raises(ValueError, match="rows_per_cta"):
         bw_probe.copy(a, rows_per_cta=12)
+
+
+UPDATE_CASES = ("append_rows", "append_cols", "delete_cols", "delete_rows",
+                "rank_update")
+
+
+def _update(name, q, r, extra, mode, device=None):
+    from tsqr_tpu_torch.core import update
+    b_rows, b_cols, u, v = extra
+    if name == "append_rows":
+        return update.qr_append_rows(q, r, b_rows, mode, device=device)
+    if name == "append_cols":
+        return update.qr_append_cols(q, r, b_cols, mode, device=device)
+    if name == "delete_cols":
+        return update.qr_delete_cols(q, r, (0, 31, 63), mode, device=device)
+    if name == "delete_rows":
+        return update.qr_delete_rows(q, r, 512, mode, device=device)
+    return update.qr_rank_update(q, r, u, v, mode, device=device)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor"])
+@pytest.mark.parametrize("name", UPDATE_CASES)
+def test_updates_on_card_match_cpu(card, name, mode):
+    from tsqr_tpu_torch.core import blockqr
+    rng = np.random.default_rng(11)
+    m, n = 4096, 64
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+
+    q, r = blockqr.qr(u(m, n), mode, device="cpu")
+    extra = (u(512, n), u(m, 16), u(m, 8), u(n, 8))
+    launches = panel_kernel.LAUNCHES
+    q1, r1 = _update(name, q.to(card), r.to(card),
+                     [x.to(card) for x in extra], mode)
+    assert q1.is_cuda and r1.is_cuda
+    # every small core but delete_rows' Cholesky reaches the panel kernel
+    assert (panel_kernel.LAUNCHES > launches) == (name != "delete_rows")
+    q0, r0 = _update(name, q, r, extra, mode, device="cpu")
+    # the same update on the same factors: the card's panel kernel and the
+    # CPU's plain version sum in other orders, float32 grade
+    assert _rel(r1.cpu(), r0) <= 1e-5 and _rel(q1.cpu(), q0) <= 1e-5
+
+
+def test_trace_records_cuda_kernels(card, tmp_path):
+    from tsqr_tpu_torch.core import blockqr
+    from tsqr_tpu_torch.harness import profile
+    a = torch.rand(1 << 14, 128, device=card)
+    blockqr.qr(a)
+    with profile.trace(str(tmp_path)) as tr:
+        blockqr.qr(a)
+    s = tr.summary()
+    assert s["kernels"] > 0 and 0 < s["busy_share"] <= 1
+    assert any("panel_qr" in t["name"] for t in tr.summary(top=50)["top"])
+
+
+def test_ablate_no_panel_launches_no_panel_kernel(card):
+    from tsqr_tpu_torch.core import blockqr
+    a = torch.rand(1 << 12, 256, device=card)
+    launches = panel_kernel.LAUNCHES
+    blockqr.qr(a, _ablate="no_panel")
+    torch.cuda.synchronize()
+    assert panel_kernel.LAUNCHES == launches
+    blockqr.qr(a, _ablate="no_project")
+    assert panel_kernel.LAUNCHES == launches + 2

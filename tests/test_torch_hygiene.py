@@ -56,7 +56,15 @@ def test_scan_sees_the_whole_port():
                  "tsqr_tpu_torch/harness/mfu.py",
                  "tsqr_tpu_torch/harness/speed.py",
                  "tsqr_tpu_torch/harness/main.py",
-                 "tsqr_tpu_torch/utils/status.py", "chip_smoke.py"):
+                 "tsqr_tpu_torch/utils/status.py",
+                 "tsqr_tpu_torch/core/update.py",
+                 "tsqr_tpu_torch/utils/experimental.py",
+                 "tsqr_tpu_torch/harness/accuracy.py",
+                 "tsqr_tpu_torch/harness/cond.py",
+                 "tsqr_tpu_torch/harness/eval_q.py",
+                 "tsqr_tpu_torch/harness/compare.py",
+                 "tsqr_tpu_torch/harness/baseline.py",
+                 "tsqr_tpu_torch/harness/profile.py", "chip_smoke.py"):
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("tsqr_tpu.modes")
     assert not _forbidden("tsqr_tpu_torch.modes")

@@ -18,9 +18,11 @@ later columns are still zero, as the reference's ``lax.fori_loop`` body
 does.  That loop exists in the reference only to bound trace time, which
 eager PyTorch does not have, so "auto" always unrolls; "fori" is kept
 for parity with the reference's call sites and costs the zero columns'
-projections.  Q and R are filled in place, panel by panel.  The
-reference's ``_ablate`` profiling hook is not ported: it belongs to the
-harness's phase breakdown (ROADMAP A.8).
+projections.  Q and R are filled in place, panel by panel.
+
+``_ablate`` is the profiling hook of ``harness/profile.blockqr_breakdown``:
+the same program with the panel factorizations or the trailing
+projections taken out, timed against the full one.
 """
 
 from __future__ import annotations
@@ -40,14 +42,16 @@ DEFAULT_PANEL_WIDTH = 128
 
 
 def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
-                tsqr_fn: Callable, reorth: bool, full: bool = False) -> None:
+                tsqr_fn: Callable, reorth: bool, full: bool = False,
+                project: bool = True) -> None:
     """One BlockQR panel, in place: project against Q, factor, write
     Q_b and R's column block at c0.  The projections run against the
     growing slice Q[:, :c0], or with ``full`` against all of Q, whose
     columns at >= c0 are zero so that the products agree; the leading
-    panel (c0 = 0) skips the projections, which are provably zero."""
+    panel (c0 = 0) skips the projections, which are provably zero, and
+    so does every panel without ``project``."""
     w = a_b.shape[1]
-    first = c0 == 0
+    first = c0 == 0 or not project
     qp = q if full else q[:, :c0]
     if first:
         r12 = None
@@ -75,7 +79,7 @@ def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
     r[c0:c0 + w, c0:c0 + w] = r22
 
 
-@diff.differentiable
+@diff.differentiable(unless=lambda b: b["_ablate"] is not None)
 def qr(a: Tensor,
        mode: modes.ComputeMode | str | modes.Policy = "fp32",
        reorth: bool = False,
@@ -86,6 +90,7 @@ def qr(a: Tensor,
        leaf_qr: Callable | None = None,
        panel_method: str = "tsqr",
        loop: str = "auto",
+       _ablate: str | None = None,
        device=None) -> tuple[Tensor, Tensor]:
     """Thin QR of any (m, n) matrix with m >= n: returns (Q (m, n),
     R (n, n)).  Runs on the card unless ``device="cpu"``.  Differentiable
@@ -95,7 +100,17 @@ def qr(a: Tensor,
     ``fanin``, ``impl`` and ``leaf_qr`` go to :func:`tsqr`) or a
     CholeskyQR method of ``cholqr._METHODS``, at its default variant.
     loop: "auto" | "unroll" | "fori" (see the module docstring); "auto"
-    unrolls."""
+    unrolls.
+
+    _ablate: profiling hook, the counterpart of the reference's in-line
+    PROFILE_BREAKDOWN timers.  "no_panel" replaces each panel
+    factorization by (A', I); "no_project" skips the trailing projections
+    (every panel is factored as panel 0 is).  The time of the full call
+    less that of an ablated one is the ablated phase's.  The factors are
+    meaningless under ablation, and the gradient rule does not wrap such
+    a call."""
+    if _ablate not in (None, "no_panel", "no_project"):
+        raise ValueError(f"unknown _ablate {_ablate!r}")
     policy = modes.resolve(mode)
     a = _device.place(a, device, "qr")
     m, n = a.shape
@@ -118,6 +133,10 @@ def qr(a: Tensor,
     else:
         raise ValueError(f"unknown panel_method {panel_method!r}")
 
+    if _ablate == "no_panel":
+        def _tsqr(x):  # noqa: F811 (the profiling stand-in)
+            return x, torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+
     if n <= nb:
         q, r = _tsqr(a)
         if reorth:  # single panel: CGS2's second pass
@@ -131,5 +150,5 @@ def qr(a: Tensor,
     r = a.new_zeros(n, n)
     for c0 in range(0, n, nb):
         _panel_step(q, r, a[:, c0:c0 + nb], c0, mm, _tsqr, reorth,
-                    full=loop == "fori")
+                    full=loop == "fori", project=_ablate != "no_project")
     return q.to(policy.io_dtype), torch.triu(r).to(policy.io_dtype)
