@@ -12,9 +12,14 @@ the ladder, the tree and BlockQR, held against the CPU's), run the five
 QR updates at (2^20, 128) (the ``update`` phase), the reference's
 accuracy experiments at its sizes (the ``harness`` phase) and the phase
 breakdowns and ``torch.profiler`` traces of tier 4 and BlockQR (the
-``profile`` phase), time the stream kernel's call kinds beside those of
-the kernel before its redesign, and print the ``kernels`` JSON line and
-a last JSON line with the device.
+``profile`` phase), run the beyond-memory QR (the ``ooc`` phase: the
+matrix-free ``qr_regen`` and ``lstsq_regen`` at (2^26, 128), the
+host-streamed ``qr_out_of_core`` at (2^25, 128), and a checkpointed run
+killed in a child process and resumed bitwise) and every model of
+``models/`` at the width its users run (the ``models`` phase), time the
+stream kernel's call kinds beside those of the kernel before its
+redesign, and print the ``kernels`` JSON line and a last JSON line with
+the device.
 
     python3 chip_smoke.py [--seed N]
 
@@ -25,6 +30,7 @@ failure exits non-zero before the last line is printed.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -43,7 +49,8 @@ from tsqr_tpu_torch.harness import accuracy, cond, eval_q  # noqa: E402
 from tsqr_tpu_torch.harness import compare as compare_mod  # noqa: E402
 from tsqr_tpu_torch.harness import main as harness_main  # noqa: E402
 from tsqr_tpu_torch.harness import profile  # noqa: E402
-from tsqr_tpu_torch.core import auto, cholqr, update  # noqa: E402
+from tsqr_tpu_torch.core import auto, cholqr, ooc, update  # noqa: E402
+from tsqr_tpu_torch import models, modes  # noqa: E402
 from tsqr_tpu_torch.utils import experimental  # noqa: E402
 from tsqr_tpu_torch.core import tsqr as tsqr_mod  # noqa: E402
 from tsqr_tpu_torch.ops import _build, bw_probe, gram_stream as gs  # noqa: E402
@@ -104,6 +111,22 @@ UPDATE_TOL = 1e-5    # orthogonality and residual of every updated factor
 # kappa = 2^2 .. 2^15) and the full accuracy grid's widest corner
 M_REF, N_REF_WIDE = 1 << 15, 1024
 CORRECTED_ORTH_MAX = 1e-5   # what bf16x6_cor promises
+# the ooc phase: the reference sweep's top row, m = 2^26 at n = 128, made
+# on the card by a generator (data/bigm2.csv's regen rows); the
+# host-streamed QR at 2^25 (16 GiB of A and of Q in host memory); the
+# resume across a process's death at 2^22
+M_REGEN, REGEN_CHUNK, REGEN_SEED = 1 << 26, 1 << 21, 7
+REGEN_CASES = (("bf16", "cholqr1"), ("bf16x6_cor", "cholqr2"))
+# the JAX package's data/bigm2.csv rows at (2^26, 128), for grade only
+JAX_BIGM2 = {"bf16": (2.657e-3, 2.551e-3), "bf16x6_cor": (4.415e-5, 1.106e-7)}
+REGEN_ORTH_MAX = 3 * JAX_BIGM2["bf16x6_cor"][0]
+M_REGEN_Q = 1 << 22
+M_OOC, OOC_CHUNK = 1 << 25, 1 << 20
+M_RESUME, RESUME_CHUNK, RESUME_FAULT = 1 << 22, 1 << 19, 12
+RESUME_EXIT = 17     # the child's exit code after its injected fault
+# the models phase: each entry at the width its users run
+M_MODEL = 1 << 20
+MODEL_TOL = 1e-5
 
 
 def rel(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -860,6 +883,531 @@ def phase_profile(tier4: dict) -> None:
         flush=True)
 
 
+def timed(fn, reps: int = 3):
+    """``fn()`` ``reps`` times between CUDA events: the first call's
+    result, the kernel launches of that call (counts set to 0 just before
+    it, read just after), and the milliseconds of every call."""
+    out = counts = None
+    times = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        if i == 0:
+            out, counts = res, read_counts()
+        times.append(start.elapsed_time(end))
+        del res
+    return out, counts, times
+
+
+def kernel_launches(counts: dict) -> dict:
+    return {k: counts[k] for k in ("stream_gram", "stream_gram_reduce",
+                                   "panel_qr")}
+
+
+def regen_q_orthogonality(mode: str) -> dict:
+    """qr_regen at (M_REGEN_Q, N) from the phase's generator, then
+    Q = A rinv formed chunk by chunk and graded by the chunked device
+    metrics: the QR's own grade, beside its streamed estimate."""
+    io = torch.bfloat16 if mode == "bf16" else torch.float32
+    gen = ooc.uniform_gen(REGEN_SEED, REGEN_CHUNK, N, dtype=io)
+    r, info = ooc.qr_regen(gen, M_REGEN_Q, N, mode, "cholqr2", REGEN_CHUNK)
+    q = torch.cat([modes.mm_fp32(gen(i), info["rinv"])
+                   for i in range(M_REGEN_Q // REGEN_CHUNK)])
+    out = {"shape": [M_REGEN_Q, N], "mode": mode, "method": "cholqr2",
+           "q_orthogonality_chunked_device": float(
+               validation.orthogonality_wide_device(q)),
+           "q_residual_chunked_device": float(
+               validation.residual_regen_chunked(gen, q, r, REGEN_CHUNK)),
+           "streamed_orthogonality": float(info["orthogonality"])}
+    del q
+    return out
+
+
+def phase_regen() -> dict:
+    """The matrix-free QR at the reference's m = 2^26 edge: qr_regen at
+    (2^26, 128), chunks of 2^21 made on the card, bf16 cholqr1 and
+    bf16x6_cor cholqr2 (data/bigm2.csv's rows), a CSV block in that
+    file's schema; the QR's own grade at 2^22 by the chunked device
+    metric; lstsq_regen at (2^26, 128)."""
+    rows, out = [], {}
+    for mode, method in REGEN_CASES:
+        io = torch.bfloat16 if mode == "bf16" else torch.float32
+        gen = ooc.uniform_gen(REGEN_SEED, REGEN_CHUNK, N, dtype=io)
+        prog = ooc.regen_program(gen, M_REGEN, N, mode, method, REGEN_CHUNK)
+        (r, orth, res, _), counts, ms = timed(prog)
+        orth, res = float(orth), float(res)
+        t = float(np.median(ms)) / 1e3
+        rows.append(f"{M_REGEN},{N},{mode},{method}_regen[device_streamed],"
+                    f"{t:.6e},{flops.qr_flops(M_REGEN, N) / t / 1e12:.3f},"
+                    f"{orth:.3e},{res:.3e}")
+        out[f"{mode} {method}"] = {
+            "ms_median": float(np.median(ms)), "ms": ms,
+            "orthogonality": orth, "residual": res,
+            "jax_bigm2_orthogonality_residual": JAX_BIGM2[mode],
+            "launches": kernel_launches(counts)}
+        if mode == "bf16" and not (orth < auto._TOL[auto.M(mode)]
+                                   and res < auto._TOL[auto.M(mode)]):
+            raise AssertionError(f"qr_regen {mode}: orthogonality {orth:.2e}"
+                                 f", residual {res:.2e}")
+        # held to 3x the JAX package's streamed figure at this shape; the
+        # QR's own grade is read at 2^22 below
+        if mode == "bf16x6_cor" and not (res < 1e-5
+                                         and orth < REGEN_ORTH_MAX):
+            raise AssertionError(f"qr_regen {mode} at 2^26: orth "
+                                 f"{orth:.2e} (max {REGEN_ORTH_MAX:.2e}), "
+                                 f"residual {res:.2e}")
+        del r
+    print("regen_csv (data/bigm2.csv schema; the JAX package's rows at this "
+          "shape read orthogonality, residual "
+          + "; ".join(f"{md} {o:.3e}, {e:.3e}"
+                      for md, (o, e) in JAX_BIGM2.items())
+          + ", for grade only):")
+    print("m,n,compute_mode,method,elapsed_time,tflops,orthogonality,"
+          "residual")
+    print("\n".join(rows), flush=True)
+    q_grade = regen_q_orthogonality("bf16x6_cor")
+    if not (q_grade["q_orthogonality_chunked_device"] < 1e-5
+            and q_grade["q_residual_chunked_device"] < 1e-5):
+        raise AssertionError(f"qr_regen Q at 2^22: {q_grade}")
+    out["q_at_2^22"] = q_grade
+
+    # least squares over the same generator: b = A x* + noise
+    gen = ooc.uniform_gen(REGEN_SEED, REGEN_CHUNK, N, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(REGEN_SEED)
+    x_star = torch.randn(N, device="cuda", generator=g)
+    b = torch.cat([gen(i) @ x_star for i in range(M_REGEN // REGEN_CHUNK)])
+    b += 1e-3 * torch.randn(M_REGEN, device="cuda", generator=g)
+    lstsq_mod = importlib.import_module("tsqr_tpu_torch.models.lstsq")
+    (x, info), counts, ms = timed(lambda: lstsq_mod.lstsq_regen(
+        gen, b, M_REGEN, N, "bf16x6_cor", chunk_rows=REGEN_CHUNK), reps=1)
+    err = rel(x, x_star)
+    out["lstsq_regen bf16x6_cor"] = {
+        "ms": ms, "residual": float(info["residual"]),
+        "orthogonality": float(info["orthogonality"]),
+        "x_rel_err_vs_x_star": err, "launches": kernel_launches(counts)}
+    del b
+    if not err < 1e-4:
+        raise AssertionError(f"lstsq_regen at 2^26: x off x* by {err:.2e}")
+    return out
+
+
+def host_uniform(m: int, seed: int) -> torch.Tensor:
+    """An (m, N) float32 host tensor of uniform[-1, 1] made chunk by chunk
+    on the card (ooc.uniform_gen) and copied down."""
+    a = torch.empty(m, N)
+    gen = ooc.uniform_gen(seed, OOC_CHUNK, N, dtype=torch.float32)
+    for i, lo in enumerate(range(0, m, OOC_CHUNK)):
+        a[lo:lo + OOC_CHUNK].copy_(gen(i))
+    return a
+
+
+def staging_rates(a: torch.Tensor, q: torch.Tensor) -> dict:
+    """H2D and D2H GB/s through the module's pair of pinned staging
+    buffers, a chunk at a time over all of A (up) and into all of Q's rows
+    (down), with no compute between.  An untimed pass first allocates the
+    pinned pair and touches Q's fresh pages (a first touch is several
+    times slower), as the QR's own first Q pass would."""
+    out = {}
+    st = ooc._Staging(torch.device("cuda"))
+    x = st.h2d(a, 0, OOC_CHUNK)
+    for lo in range(0, q.shape[0], OOC_CHUNK):
+        st.d2h(x, q, lo, lo + OOC_CHUNK)
+    st.flush()
+    for direction in ("h2d", "d2h"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, a.shape[0], OOC_CHUNK):
+            if direction == "h2d":
+                x = st.h2d(a, lo, lo + OOC_CHUNK)
+            else:
+                st.d2h(x, q, lo, lo + OOC_CHUNK)
+        st.flush()
+        torch.cuda.synchronize()
+        out[f"{direction}_gbps"] = a.numel() * 4 / (
+            time.perf_counter() - t0) / 1e9
+    return out
+
+
+def phase_ooc_host() -> dict:
+    """qr_out_of_core at (2^25, 128) f32 in host memory, bf16x6_cor
+    cholqr3 with the in-pass metrics, then ooc_orthogonality and
+    ooc_residual over the returned Q; seconds a pass, the staging's H2D
+    and D2H rates, and the call's effective rate."""
+    t0 = time.perf_counter()
+    a = host_uniform(M_OOC, REGEN_SEED + 1)
+    q = torch.empty_like(a)
+    made_s = time.perf_counter() - t0
+    rates = staging_rates(a, q)
+    reset_counts()
+    t0 = time.perf_counter()
+    q, r, info = ooc.qr_out_of_core(a, "bf16x6_cor", "cholqr3", OOC_CHUNK,
+                                    out=q, metrics=True)
+    qr_s = time.perf_counter() - t0
+    counts = kernel_launches(read_counts())
+    t0 = time.perf_counter()
+    orth = ooc.ooc_orthogonality(q, OOC_CHUNK)
+    orth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = ooc.ooc_residual(a, q, r, OOC_CHUNK)
+    res_s = time.perf_counter() - t0
+    gib = a.numel() * 4 / 2**30
+    # cholqr3 without a checkpoint: 3 Gram passes (A up) and 3 Q passes
+    # (A up, Q down)
+    moved = 9 * a.numel() * 4
+    out = {"shape": [M_OOC, N], "mode": "bf16x6_cor", "method": "cholqr3",
+           "host_gib_a_and_q": 2 * gib, "make_a_s": made_s,
+           "qr_s": qr_s, "s_per_pass": qr_s / 6,
+           "effective_gbps": moved / qr_s / 1e9, **rates,
+           "inpass": info, "ooc_orthogonality": orth,
+           "ooc_orthogonality_s": orth_s, "ooc_residual": res,
+           "ooc_residual_s": res_s, "launches": counts}
+    del a, q
+    if not (info["orthogonality"] < 1e-5 and info["residual"] < 1e-5
+            and orth < 1e-5 and res < 1e-5):
+        raise AssertionError(f"qr_out_of_core at 2^25: {out}")
+    return out
+
+
+def resume_child(workdir: str) -> int:
+    """The child of the resume check: the checkpointed QR over the
+    parent's memmapped A, killed by its injected fault mid Gram pass."""
+    a = np.load(os.path.join(workdir, "a.npy"), mmap_mode="r")
+    out = np.load(os.path.join(workdir, "q.npy"), mmap_mode="r+")
+    try:
+        ooc.qr_out_of_core(a, "fp32", "cholqr3", RESUME_CHUNK, out=out,
+                           metrics=True,
+                           checkpoint=os.path.join(workdir, "ck.npz"),
+                           _fault_after=RESUME_FAULT)
+    except ooc.OOCInterrupted:
+        out.flush()
+        os._exit(RESUME_EXIT)  # a death, not a return: no clean-up runs
+    return 1
+
+
+def phase_resume() -> dict:
+    """A child process runs the checkpointed qr_out_of_core at (2^22, 128)
+    f32 cholqr3 with an np.memmap ``out`` and dies in its second Gram
+    pass; the parent resumes it; Q, R and the metrics must be bitwise the
+    parent's uninterrupted run."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    a = host_uniform(M_RESUME, REGEN_SEED + 2)
+    q0, r0, info0 = ooc.qr_out_of_core(a, "fp32", "cholqr3", RESUME_CHUNK,
+                                       metrics=True)
+    with tempfile.TemporaryDirectory() as wd:
+        np.save(os.path.join(wd, "a.npy"), a.numpy())
+        out = np.lib.format.open_memmap(os.path.join(wd, "q.npy"), "w+",
+                                        np.float32, tuple(a.shape))
+        del out
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--resume-child",
+             wd], capture_output=True, text=True, timeout=600)
+        ck = os.path.join(wd, "ck.npz")
+        if child.returncode != RESUME_EXIT or not os.path.exists(ck):
+            raise AssertionError(f"resume child exited {child.returncode} "
+                                 f"(want {RESUME_EXIT}), checkpoint "
+                                 f"{os.path.exists(ck)}: {child.stderr}")
+        step = int(np.load(ck)["it"]), int(np.load(ck)["chunk"])
+        out = np.load(os.path.join(wd, "q.npy"), mmap_mode="r+")
+        q1, r1, info1 = ooc.qr_out_of_core(
+            np.load(os.path.join(wd, "a.npy"), mmap_mode="r"), "fp32",
+            "cholqr3", RESUME_CHUNK, out=out, metrics=True, checkpoint=ck)
+        same = (torch.equal(torch.from_numpy(np.asarray(q1)), q0)
+                and torch.equal(r1, r0) and info1 == info0)
+        left = os.path.exists(ck)
+        del q1, out
+    if not same or left:
+        raise AssertionError(f"resume: bitwise {same}, checkpoint left "
+                             f"{left}")
+    return {"shape": [M_RESUME, N], "chunk": RESUME_CHUNK,
+            "fault_after_step": RESUME_FAULT,
+            "checkpoint_at_it_chunk": step, "bitwise": same,
+            "inpass": info0, "seconds": time.perf_counter() - t0}
+
+
+def phase_ooc() -> dict:
+    t0 = time.perf_counter()
+    out = {"regen": phase_regen()}
+    print(json.dumps({"ooc_regen": out["regen"]}), flush=True)
+    out["host"] = phase_ooc_host()
+    print(json.dumps({"ooc_host": out["host"]}), flush=True)
+    out["resume"] = phase_resume()
+    print(json.dumps({"ooc_resume": out["resume"]}), flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"ooc_phase_seconds": out["seconds"]}), flush=True)
+    return out
+
+
+def card_latms(m: int, n: int, s: torch.Tensor, gen) -> torch.Tensor:
+    """(m, n) float32 U diag(s) V^T made on the card: U, V the Q factors
+    of Gaussians (utils/latms.py's construction, at sizes numpy would take
+    minutes for)."""
+    u = torch.linalg.qr(torch.randn(m, n, device="cuda", generator=gen)).Q
+    v = torch.linalg.qr(torch.randn(n, n, device="cuda", generator=gen)).Q
+    s = s.to("cuda", torch.float64)
+    return ((u.double() * s) @ v.double().T).float()
+
+
+def model_row(name: str, fn, check, reps: int = 3) -> dict:
+    """One model entry: run ``fn`` ``reps`` times (CUDA events), hold the
+    first result to ``check`` (which returns its readings and raises on a
+    failed gate), and record the launches of that first call."""
+    out, counts, ms = timed(fn, reps)
+    row = {"ms_median": float(np.median(ms)), "ms": ms,
+           "launches": kernel_launches(counts), **check(out)}
+    print(json.dumps({"model": name, **row}), flush=True)
+    return row
+
+
+def gate(ok: bool, what: str, readings: dict) -> dict:
+    if not ok:
+        raise AssertionError(f"{what}: {readings}")
+    return readings
+
+
+def phase_models(seed: int) -> dict:
+    """Every entry of models/ on the card at the width its users run:
+    gates per entry, ms (median of 3 by CUDA events) and the stream and
+    panel kernel launches of its first call."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    rows = {}
+
+    def rand(*shape):
+        return torch.rand(*shape, device=dev, generator=g) * 2 - 1
+
+    def orth(u):
+        return validation.orthogonality_accurate(u)
+
+    # tsqr_svd through the stream kernel (cholqr3_fused)
+    a = rand(M_MODEL, N)
+    s64 = torch.linalg.eigvalsh(a.double().T @ a.double()).flip(0).sqrt()
+
+    def svd_check(out):
+        u, s, vt = out
+        r = {"s_rel_err_vs_fp64": float(((s.double() - s64).abs() / s64)
+                                        .max()),
+             "u_orthogonality": orth(u),
+             "residual": validation.residual_accurate(a, u * s, vt)}
+        return gate(max(r.values()) < MODEL_TOL, "tsqr_svd", r)
+
+    rows["tsqr_svd"] = model_row("tsqr_svd", lambda: models.tsqr_svd(
+        a, MODE, "cholqr3_fused"), svd_check)
+
+    # rsvd: exactly rank 120 at (2^20, 512), two panel-kernel trees
+    low = rand(M_MODEL, 120) @ rand(120, 512)
+
+    def rsvd_check(out):
+        u, s, vt = out
+        r = {"u_orthogonality": orth(u),
+             "residual": validation.residual_accurate(low, u * s, vt)}
+        return gate(max(r.values()) < MODEL_TOL, "rsvd", r)
+
+    rows["rsvd"] = model_row("rsvd", lambda: models.rsvd(low, 120, g),
+                             rsvd_check)
+    del low
+
+    # block Lanczos on a diagonal operator with a gapped spectrum
+    d = torch.linspace(1.0, 0.0, M_MODEL, device=dev)
+    d[:8] = torch.arange(10.0, 2.0, -1.0)
+
+    def lanczos_check(out):
+        qb = out[0]
+        t = qb.double().T @ (d.double()[:, None] * qb.double())
+        top = float(torch.linalg.eigvalsh(t)[-1])
+        r = {"basis_orthogonality": orth(qb), "top_ritz": top,
+             "top_rel_err": abs(top - 10.0) / 10.0}
+        return gate(r["basis_orthogonality"] < MODEL_TOL
+                    and r["top_rel_err"] < MODEL_TOL, "block_lanczos", r)
+
+    rows["block_lanczos"] = model_row("block_lanczos", lambda: models
+                                      .block_lanczos(lambda x: d[:, None] * x,
+                                                     M_MODEL, 128, 8, g),
+                                      lanczos_check)
+
+    # lstsq: BlockQR's shape, latms kappa = 1e2, plain and ridge; x's
+    # expected forward error is kappa times the factorization's grade
+    m_l, n_l, kappa_l = M_WIDE, N_WIDE, 1e2
+    al = card_latms(m_l, n_l, torch.logspace(0, -math.log10(kappa_l), n_l),
+                    g)
+    x_star = torch.randn(n_l, device=dev, generator=g)
+    bl = al @ x_star + 1e-3 * torch.randn(m_l, device=dev, generator=g)
+    a64, b64 = al.double(), bl.double()
+    x64 = torch.linalg.lstsq(a64, b64[:, None]).solution[:, 0]
+    lam = 1e-2
+    x64r = torch.linalg.solve(a64.T @ a64 + lam * torch.eye(
+        n_l, dtype=torch.float64, device=dev), a64.T @ b64)
+    del a64
+    for ridge, ref in ((0.0, x64), (lam, x64r)):
+        def lstsq_check(out, ref=ref, ridge=ridge):
+            r = {"x_rel_err_vs_fp64": rel(out, ref)}
+            return gate(r["x_rel_err_vs_fp64"] < kappa_l * MODEL_TOL,
+                        f"lstsq ridge={ridge}", r)
+
+        rows[f"lstsq ridge={ridge}"] = model_row(
+            f"lstsq ridge={ridge}", lambda ridge=ridge: models.lstsq(
+                al, bl, ridge=ridge), lstsq_check)
+    del al, bl
+
+    # lstsq_cgls at kappa = 1e4
+    s_c = torch.empty(N, dtype=torch.float64).uniform_(0.01, 1.0)
+    s_c = s_c.sort(descending=True).values
+    s_c[0], s_c[-1] = 1.0, 1e-4
+    ac = card_latms(M_MODEL, N, s_c, g)
+    bc = rand(M_MODEL)
+    xc64 = torch.linalg.lstsq(ac.double(), bc.double()[:, None]).solution
+    r_opt = float(torch.linalg.norm(ac.double() @ xc64 - bc.double()[:, None]))
+
+    def cgls_check(out):
+        x, info = out
+        r_got = float(torch.linalg.norm(ac.double() @ x.double() - bc.double()))
+        r = {"iters": info["iters"],
+             "grad_rel_max": float(info["grad_rel"].max()),
+             "residual_excess": r_got / r_opt - 1}
+        return gate(r["iters"] <= 80 and r["residual_excess"] < 1e-3,
+                    "lstsq_cgls", r)
+
+    rows["lstsq_cgls"] = model_row("lstsq_cgls", lambda: models.lstsq_cgls(
+        lambda v: ac @ v, lambda v: ac.T @ v, bc, N, gen=g, tol=1e-6),
+        cgls_check)
+    del ac, bc
+
+    # pivoted QR at rank 64, every other column zero: the ladder runs
+    # through tier 4 (tier 3's shifted passes orthonormalize a product of
+    # Gaussians of inner width 64, or repeated columns, by filling the
+    # null directions with amplified rounding; a zero column stays zero)
+    a64r = rand(M_MODEL, N)
+    a64r[:, 1::2] = 0.0
+
+    def pqr_check(out):
+        q, r_, piv, db = out
+        rank = int((db > 1e-5 * db[0]).sum())
+        r = {"rank_from_diag_b": rank,
+             "residual": validation.residual_accurate(a64r[:, piv], q, r_),
+             "q_orthogonality": orth(q)}
+        return gate(rank == 64 and r["residual"] < MODEL_TOL
+                    and r["q_orthogonality"] < MODEL_TOL, "pivoted_qr", r)
+
+    rows["pivoted_qr"] = model_row("pivoted_qr", lambda: models.pivoted_qr(
+        a64r, g, MODE), pqr_check)
+    if rows["pivoted_qr"]["launches"]["panel_qr"] < 1:
+        raise AssertionError("pivoted_qr did not reach tier 4's panel kernel")
+    del a64r
+
+    # interpolative and CUR at exact rank 32
+    a32 = rand(M_MODEL, 32) @ rand(32, N)
+
+    def id_check(out):
+        cols, coeff, _ = out
+        r = {"reconstruction": rel(a32[:, cols] @ coeff, a32)}
+        return gate(r["reconstruction"] < 1e-4, "interpolative", r)
+
+    def cur_check(out):
+        cols, u, rws = out
+        r = {"reconstruction": rel(a32[:, cols] @ u @ a32[rws], a32)}
+        return gate(r["reconstruction"] < 1e-4, "cur", r)
+
+    rows["interpolative"] = model_row("interpolative", lambda: models
+                                      .interpolative(a32, g, 32), id_check)
+    rows["cur"] = model_row("cur", lambda: models.cur(a32, g, 32), cur_check)
+    del a32
+
+    # polar through the ladder
+    def polar_check(out):
+        u, h = out
+        r = {"u_orthogonality": orth(u),
+             "residual": validation.residual_accurate(a, u, h),
+             "h_asymmetry": float((h - h.T).abs().max()),
+             "h_min_eig_rel": float(torch.linalg.eigvalsh(h.double())[0]
+                                    / torch.linalg.matrix_norm(
+                                        h.double(), 2))}
+        return gate(r["u_orthogonality"] < MODEL_TOL
+                    and r["residual"] < MODEL_TOL and r["h_asymmetry"] == 0
+                    and r["h_min_eig_rel"] > -1e-5, "polar", r)
+
+    rows["polar"] = model_row("polar", lambda: models.polar(a, MODE),
+                              polar_check)
+
+    # procrustes with a planted rotation
+    om_true = torch.linalg.qr(torch.randn(N, N, device=dev, generator=g)).Q
+    b = a @ om_true + 1e-4 * torch.randn(M_MODEL, N, device=dev, generator=g)
+
+    def procrustes_check(om):
+        r = {"rotation_err": float(torch.linalg.norm(om - om_true))
+             / math.sqrt(N), "orthogonality": orth(om)}
+        return gate(r["rotation_err"] < 1e-3
+                    and r["orthogonality"] < MODEL_TOL, "procrustes", r)
+
+    rows["procrustes"] = model_row("procrustes", lambda: models.procrustes(
+        a, b), procrustes_check)
+    del b
+
+    # subspace iteration and Nystrom on diagonal operators
+    ds = torch.linspace(1.0, 0.0, M_MODEL, device=dev)
+    ds[:36] = torch.linspace(10.0, 4.0, 36)
+
+    def sub_check(out):
+        w, v, res = out
+        r = {"eig_rel_err": float(((w - ds[:32]).abs() / ds[:32]).max()),
+             "v_orthogonality": orth(v),
+             "max_resid": float(res.max())}
+        return gate(r["eig_rel_err"] < MODEL_TOL
+                    and r["v_orthogonality"] < MODEL_TOL,
+                    "subspace_iteration", r)
+
+    rows["subspace_iteration"] = model_row(
+        "subspace_iteration", lambda: models.subspace_iteration(
+            lambda x: ds[:, None] * x, M_MODEL, 32, g, iters=20,
+            return_resid=True), sub_check)
+    # exact rank 64, a 10x range: the float32 whitening's error grows
+    # with the order in both packages (max relative error of lam on the
+    # CPU: 8e-4 at 2^13, 2.5e-3 at 2^16), so lam is held at 5e-2
+    dn = torch.zeros(M_MODEL, device=dev)
+    dn[:64] = torch.linspace(1.0, 0.1, 64)
+
+    def nys_check(out):
+        u, lam_ = out
+        r = {"lam_rel_err": float(((lam_ - dn[:64]).abs() / dn[:64]).max()),
+             "u_orthogonality": orth(u)}
+        return gate(r["lam_rel_err"] < 5e-2
+                    and r["u_orthogonality"] < MODEL_TOL, "nystrom", r)
+
+    rows["nystrom"] = model_row("nystrom", lambda: models.nystrom(
+        lambda x: dn[:, None] * x, M_MODEL, 64, g), nys_check)
+
+    # cca: two planted shared directions, each QR route
+    z = torch.randn(M_MODEL, 2, device=dev, generator=g)
+    x = torch.cat([z + 0.05 * torch.randn(M_MODEL, 2, device=dev,
+                                          generator=g),
+                   torch.randn(M_MODEL, N - 2, device=dev, generator=g)], 1)
+    y = torch.cat([z + 0.05 * torch.randn(M_MODEL, 2, device=dev,
+                                          generator=g),
+                   torch.randn(M_MODEL, 62, device=dev, generator=g)], 1)
+
+    def cca_check(out):
+        c = out[0]
+        r = {"top2": c[:2].tolist(), "rest_max": float(c[2:].max())}
+        return gate(min(r["top2"]) > 0.99 and r["rest_max"] < 0.2, "cca", r)
+
+    for method in ("tsqr", "auto", "cholqr2"):
+        rows[f"cca {method}"] = model_row(
+            f"cca {method}", lambda method=method: models.cca(
+                x, y, method=method), cca_check)
+    del x, y, a
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"models_phase_seconds": seconds}), flush=True)
+    return {"rows": rows, "seconds": seconds}
+
+
 def panel_entry(tier4: dict) -> dict:
     """The panel kernel at the tier-4 path's leaf shape: the zero-column
     input cut into its leaves, as the first tree's leaf launch sees it."""
@@ -929,10 +1477,25 @@ def probe_entry(name: str, counts: dict, gen) -> dict:
     return entry
 
 
+def launches_by_path(ooc_run: dict, models_run: dict) -> dict:
+    """{path: {kernel: launches}} of the ooc and models phases, each
+    path's counts set to 0 just before its first call and read just
+    after."""
+    paths = {("models." if k.startswith("lstsq") else "ooc.qr_regen ")
+             + k: v["launches"]
+             for k, v in ooc_run["regen"].items() if "launches" in v}
+    paths["ooc.qr_out_of_core"] = ooc_run["host"]["launches"]
+    paths.update({f"models.{k}": v["launches"]
+                  for k, v in models_run["rows"].items()})
+    return paths
+
+
 def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
-                       inplace: dict) -> None:
+                       inplace: dict, paths: dict) -> None:
     """Every kernel of the main paths at the main paths' shapes: its time,
-    its plain version's time, the library call's time and the bound."""
+    its plain version's time, the library call's time and the bound; the
+    stream and panel kernels' launches on the ooc and models paths
+    beside the main path's."""
     g = gs.gram_stream(a, MODE)
     rinv = torch.linalg.solve_triangular(
         torch.linalg.cholesky(g).T, torch.eye(N, device="cuda"), upper=True)
@@ -1039,16 +1602,23 @@ def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
         probe_entry("read_reduce", bw_run["counts"], gen),
         probe_entry("copy", bw_run["counts"], gen),
     ]
+    for entry in kernels[:3]:
+        entry["launches_by_path"] = {p: c[entry["name"]]
+                                     for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--resume-child", metavar="DIR",
+                    help=argparse.SUPPRESS)  # the ooc phase's child
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.resume_child:
+        return resume_child(args.resume_child)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_card()
     phase_build()
@@ -1069,8 +1639,10 @@ def main() -> int:
     phase_update(args.seed)
     phase_harness(args.seed)
     phase_profile(tier4)
+    ooc_run = phase_ooc()
+    models_run = phase_models(args.seed)
     phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4,
-                       bw_run, inplace)
+                       bw_run, inplace, launches_by_path(ooc_run, models_run))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

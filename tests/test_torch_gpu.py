@@ -404,3 +404,213 @@ def test_ablate_no_panel_launches_no_panel_kernel(card):
     assert panel_kernel.LAUNCHES == launches
     blockqr.qr(a, _ablate="no_project")
     assert panel_kernel.LAUNCHES == launches + 2
+
+
+# ---- core/ooc.py and models/ on the card against the CPU ------------------
+
+def _u(rng, *shape):
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("mode,method", [("fp32", "cholqr3"),
+                                         ("bf16x6_cor", "cholqr2"),
+                                         ("bf16", "cholqr1")])
+def test_qr_out_of_core_on_card_matches_cpu(card, mode, method):
+    from tsqr_tpu_torch.core import ooc
+    a = _u(np.random.default_rng(12), 5000, 64)
+    if mode == "bf16":
+        a = a.to(torch.bfloat16)
+    q1, r1, info1 = ooc.qr_out_of_core(a, mode, method, chunk_rows=1024,
+                                       metrics=True)
+    q0, r0, info0 = ooc.qr_out_of_core(a, mode, method, chunk_rows=1024,
+                                       metrics=True, device="cpu")
+    tol = auto._TOL[auto.M(mode)]
+    assert q1.device.type == "cpu" and q1.dtype == q0.dtype
+    assert _rel(q1, q0) <= tol and _rel(r1, r0) <= tol
+    assert abs(info1["orthogonality"] - info0["orthogonality"]) <= tol
+    assert ooc.ooc_orthogonality(q1, 1024) < (2e-2 if mode == "bf16"
+                                              else 1e-5)
+    assert abs(ooc.ooc_residual(a, q1, r1, 1024) - ooc.ooc_residual(
+        a, q0, r0, 1024, device="cpu")) <= tol
+
+
+@pytest.mark.parametrize("fault", [3, 10, 17])
+def test_qr_out_of_core_checkpoint_resumes_bitwise_on_card(card, tmp_path,
+                                                           fault):
+    # 4 chunks a pass, cholqr3: steps 1-4, 6-9, 11-14 Gram passes, 5 and
+    # 10 chain extensions, 15-18 the Q pass
+    from tsqr_tpu_torch.core import ooc
+    a = _u(np.random.default_rng(13), 4096, 48).numpy()
+    q, r, info = ooc.qr_out_of_core(a, "fp32", "cholqr3", chunk_rows=1024,
+                                    metrics=True)
+    out = np.empty_like(a)
+    ck = tmp_path / "ck.npz"
+    with pytest.raises(ooc.OOCInterrupted):
+        ooc.qr_out_of_core(a, "fp32", "cholqr3", chunk_rows=1024,
+                           metrics=True, out=out, checkpoint=ck,
+                           _fault_after=fault)
+    q2, r2, info2 = ooc.qr_out_of_core(a, "fp32", "cholqr3", chunk_rows=1024,
+                                       metrics=True, out=out, checkpoint=ck)
+    assert q2 is out and not ck.exists()
+    assert torch.equal(torch.from_numpy(out), q) and torch.equal(r2, r)
+    assert info2 == info
+
+
+def test_qr_regen_and_lstsq_regen_on_card_match_cpu(card):
+    import importlib
+
+    from tsqr_tpu_torch.core import ooc
+    lstsq_mod = importlib.import_module("tsqr_tpu_torch.models.lstsq")
+    rng = np.random.default_rng(14)
+    a, b = _u(rng, 4096, 64), _u(rng, 4096)
+    a_card = a.to(card)
+
+    def gens(x):
+        return lambda i: x[i * 512:(i + 1) * 512]
+
+    for mode, method in (("bf16x6_cor", "cholqr2"), ("fp32", "cholqr3"),
+                         ("fp32", "cholqr_iter")):
+        r1, i1 = ooc.qr_regen(gens(a_card), 4096, 64, mode, method, 512)
+        r0, i0 = ooc.qr_regen(gens(a), 4096, 64, mode, method, 512,
+                              device="cpu")
+        assert r1.is_cuda and _rel(r1.cpu(), r0) <= 1e-5
+        assert float(i1["orthogonality"]) < 1e-5
+    x1, j1 = lstsq_mod.lstsq_regen(gens(a_card), b, 4096, 64,
+                                   chunk_rows=512)
+    x0, j0 = lstsq_mod.lstsq_regen(gens(a), b, 4096, 64, chunk_rows=512,
+                                   device="cpu")
+    assert _rel(x1.cpu(), x0) <= 1e-5
+    assert abs(float(j1["residual"]) - float(j0["residual"])) <= 1e-5
+    gen = ooc.uniform_gen(5, 1024, 64, dtype=torch.float32)
+    first = [gen(i) for i in range(3)]
+    assert first[0].is_cuda
+    assert all(torch.equal(gen(i), first[i]) for i in (2, 0, 1))
+
+
+@pytest.fixture
+def same_draws(monkeypatch):
+    """The models' draws made by one CPU generator and moved to the call's
+    device, so that the card's call and the CPU's see the same random
+    matrices."""
+    import importlib
+
+    from tsqr_tpu_torch import modes
+
+    def reset():
+        g = torch.Generator().manual_seed(0)
+
+        def normal(gen, shape, device):
+            return torch.randn(shape, generator=g).to(device)
+
+        def sketch(a, gen, l):
+            om = torch.randn(l, a.shape[0], generator=g).to(a.device)
+            return modes.mm_fp32(om, a)
+
+        for name in ("rsvd", "lanczos", "lstsq", "subspace"):
+            monkeypatch.setattr(importlib.import_module(
+                f"tsqr_tpu_torch.models.{name}"), "_normal", normal)
+        monkeypatch.setattr(importlib.import_module(
+            "tsqr_tpu_torch.models.qrcp"), "_sketch", sketch)
+
+    return reset
+
+
+def _model_call(name, on, card):
+    """One model call on the card (on=card) or the CPU, and what of its
+    result is unique (values, products, subspace projectors)."""
+    from tsqr_tpu_torch import models as tm
+    dev = card if on == card else torch.device("cpu")
+    kw = {} if on == card else {"device": "cpu"}
+    rng = np.random.default_rng(15)
+    a = _u(rng, 2048, 32)
+    low = (_u(rng, 2048, 6) @ _u(rng, 6, 32))
+    d = torch.linspace(1.0, 0.01, 2048)
+    d[:8] = torch.tensor([10., 9., 8., 7., 6., 5., 4., 3.])
+    d = d.to(dev)
+    g = torch.Generator(device=dev)
+
+    def mv(x):
+        return d[:, None] * x
+
+    def proj(u):
+        u = torch.linalg.qr(u.double()).Q
+        return u @ u.T
+
+    if name == "tsqr_svd":
+        u, s, vt = tm.tsqr_svd(a.to(dev), "bf16x6_cor", "cholqr3_fused", **kw)
+        return [s, (u * s) @ vt]
+    if name == "rsvd":
+        u, s, vt = tm.rsvd(low.to(dev), 6, g, **kw)
+        return [s, (u * s) @ vt]
+    if name == "block_lanczos":
+        qb, _, _ = tm.block_lanczos(mv, 2048, 8, 4, g, **kw)
+        return [torch.linalg.eigvalsh(qb.T @ (d[:, None] * qb))]
+    if name == "lstsq":
+        return [tm.lstsq(a.to(dev), a[:, 0].to(dev) + 0.1, ridge=r, **kw)
+                for r in (0.0, 0.5)]
+    if name == "lstsq_cgls":
+        ad = a.to(dev)
+        x, _ = tm.lstsq_cgls(lambda v: ad @ v, lambda v: ad.T @ v,
+                             a[:, 0].to(dev) + 0.1, 32, gen=g, tol=1e-6, **kw)
+        return [x]
+    if name == "pivoted_qr":
+        q, r, piv, db = tm.pivoted_qr(low.to(dev), g, **kw)
+        # past the rank the pivots are the noise's: compare the rank's
+        # pivots and the truncation in the original column order
+        rec = torch.empty_like(q)
+        rec[:, piv] = q[:, :6] @ r[:6]
+        return [piv[:6].float(), db, rec]
+    if name == "interpolative":
+        cols, coeff, _ = tm.interpolative(low.to(dev), g, 6, **kw)
+        return [cols.float(), low.to(dev)[:, cols] @ coeff]
+    if name == "cur":
+        cols, u, rows = tm.cur(low.to(dev), g, 6, **kw)
+        ld = low.to(dev)
+        return [cols.float(), rows.float(), ld[:, cols] @ u @ ld[rows]]
+    if name == "polar":
+        u, h = tm.polar(a.to(dev), "bf16x6_cor", **kw)
+        return [u @ h, h]
+    if name == "procrustes":
+        return [tm.procrustes(a.to(dev), a.to(dev) @ torch.linalg.qr(
+            _u(rng, 32, 32)).Q.to(dev), **kw)]
+    if name == "subspace_iteration":
+        w, v = tm.subspace_iteration(mv, 2048, 6, g, **kw)
+        return [w, proj(v)]
+    if name == "nystrom":
+        u, lam = tm.nystrom(mv, 2048, 6, g, **kw)
+        return [lam, proj(u)]
+    corrs = [tm.cca(a[:, :16].to(dev), a[:, 16:].to(dev) + 0.5 * a[:, :16]
+                    .to(dev), method=m, **kw)[0]
+             for m in ("tsqr", "auto", "cholqr2")]
+    return corrs
+
+
+MODELS = ("tsqr_svd", "rsvd", "block_lanczos", "lstsq", "lstsq_cgls",
+          "pivoted_qr", "interpolative", "cur", "polar", "procrustes",
+          "subspace_iteration", "nystrom", "cca")
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_models_on_card_match_cpu(card, same_draws, name):
+    same_draws()
+    got = _model_call(name, card, card)
+    same_draws()
+    want = _model_call(name, "cpu", card)
+    for x, y in zip(got, want):
+        assert x.is_cuda
+        # lstsq_cgls: its iterates agree to the solve's own accuracy
+        tol = 1e-3 if name == "lstsq_cgls" else 1e-5
+        assert _rel(x.cpu(), y) <= tol, name
+
+
+def test_precision_harness_on_card(card):
+    from tsqr_tpu_torch.harness import precision
+    out = precision.run(m=1 << 14, chunk=1 << 13)
+    svd = out["small_svd_128"]
+    assert set(svd) >= {"float32 default", "float64 gesvd"}
+    # the float64 SVD rounded to float32 is what models._common.svd runs
+    assert svd["float64 gesvd"]["u_orthogonality"] < 1e-6
+    grams = out[f"gram_rel_err_{1 << 14}x128"]
+    assert all(v["blocks"] < 1e-4 for k, v in grams.items()
+               if isinstance(v, dict))
+    assert out[f"regen_q_orthogonality_{1 << 14}x128"]["fp32"] < 1e-5

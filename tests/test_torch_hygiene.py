@@ -64,7 +64,17 @@ def test_scan_sees_the_whole_port():
                  "tsqr_tpu_torch/harness/eval_q.py",
                  "tsqr_tpu_torch/harness/compare.py",
                  "tsqr_tpu_torch/harness/baseline.py",
-                 "tsqr_tpu_torch/harness/profile.py", "chip_smoke.py"):
+                 "tsqr_tpu_torch/harness/profile.py",
+                 "tsqr_tpu_torch/core/ooc.py",
+                 "tsqr_tpu_torch/models/__init__.py",
+                 "tsqr_tpu_torch/models/svd.py",
+                 "tsqr_tpu_torch/models/rsvd.py",
+                 "tsqr_tpu_torch/models/lanczos.py",
+                 "tsqr_tpu_torch/models/lstsq.py",
+                 "tsqr_tpu_torch/models/qrcp.py",
+                 "tsqr_tpu_torch/models/polar.py",
+                 "tsqr_tpu_torch/models/subspace.py",
+                 "tsqr_tpu_torch/models/cca.py", "chip_smoke.py"):
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("tsqr_tpu.modes")
     assert not _forbidden("tsqr_tpu_torch.modes")
@@ -80,3 +90,50 @@ def test_port_exports_everything_the_jax_package_exports():
     assert isinstance(tsqr_tpu_torch.__version__, str)
     assert tsqr_tpu_torch.resolve("bf16x6_cor").mode.value == "bf16x6_cor"
     assert isinstance(tsqr_tpu_torch.resolve("fp32"), tsqr_tpu_torch.Policy)
+    import tsqr_tpu.models
+    import tsqr_tpu_torch.models
+
+    assert set(tsqr_tpu.models.__all__) <= set(tsqr_tpu_torch.models.__all__)
+    for name in tsqr_tpu_torch.models.__all__:
+        assert callable(getattr(tsqr_tpu_torch.models, name)), name
+
+
+def _mesh_calls():
+    """Each model that takes ``mesh=`` in the JAX package, called with a
+    mesh on small CPU inputs."""
+    import torch
+
+    from tsqr_tpu_torch import models as tm
+
+    a, g = torch.ones(64, 8), torch.Generator()
+    mv = (lambda x: x)
+    return {
+        "tsqr_svd": lambda m: tm.tsqr_svd(a, mesh=m, device="cpu"),
+        "rsvd": lambda m: tm.rsvd(a, 2, g, mesh=m, device="cpu"),
+        "block_lanczos": lambda m: tm.block_lanczos(mv, 64, 4, 2, g, mesh=m,
+                                                    device="cpu"),
+        "lstsq": lambda m: tm.lstsq(a, a[:, 0], mesh=m, device="cpu"),
+        "pivoted_qr": lambda m: tm.pivoted_qr(a, g, mesh=m, device="cpu"),
+        "interpolative": lambda m: tm.interpolative(a, g, 2, mesh=m,
+                                                    device="cpu"),
+        "cur": lambda m: tm.cur(a, g, 2, mesh=m, device="cpu"),
+        "polar": lambda m: tm.polar(a, mesh=m, device="cpu"),
+        "subspace_iteration": lambda m: tm.subspace_iteration(
+            mv, 64, 2, g, mesh=m, device="cpu"),
+        "nystrom": lambda m: tm.nystrom(mv, 64, 2, g, mesh=m, device="cpu"),
+        "cca": lambda m: tm.cca(a, a, mesh=m, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_mesh_calls()))
+def test_model_mesh_is_reserved_for_the_distributed_port(name):
+    import inspect
+
+    import tsqr_tpu.models
+    import tsqr_tpu_torch.models
+
+    # the same models take mesh= in both packages
+    for pkg in (tsqr_tpu.models, tsqr_tpu_torch.models):
+        assert "mesh" in inspect.signature(getattr(pkg, name)).parameters
+    with pytest.raises(NotImplementedError, match="A.7"):
+        _mesh_calls()[name](object())
