@@ -15,11 +15,17 @@ breakdowns and ``torch.profiler`` traces of tier 4 and BlockQR (the
 ``profile`` phase), run the beyond-memory QR (the ``ooc`` phase: the
 matrix-free ``qr_regen`` and ``lstsq_regen`` at (2^26, 128), the
 host-streamed ``qr_out_of_core`` at (2^25, 128), and a checkpointed run
-killed in a child process and resumed bitwise) and every model of
-``models/`` at the width its users run (the ``models`` phase), time the
-stream kernel's call kinds beside those of the kernel before its
-redesign, and print the ``kernels`` JSON line and a last JSON line with
-the device.
+killed in a child process and resumed bitwise), every model of
+``models/`` at the width its users run (the ``models`` phase), the
+distributed layer (the ``distributed`` phase: four ranks on the card
+over gloo, each holding (2^20, 128) of a global (2^22, 128), every
+driver of ``parallel/dtsqr.py``, the models' ``mesh=`` routes and three
+drivers' gradients, each held to the single-card result of the same
+global input, then a one-rank NCCL group) and the native emulation
+cores against the card's emulation products (the ``native`` phase),
+time the stream kernel's call kinds beside those of the kernel before
+its redesign, and print the ``kernels`` JSON line and a last JSON line
+with the device.
 
     python3 chip_smoke.py [--seed N]
 
@@ -50,12 +56,15 @@ from tsqr_tpu_torch.harness import compare as compare_mod  # noqa: E402
 from tsqr_tpu_torch.harness import main as harness_main  # noqa: E402
 from tsqr_tpu_torch.harness import profile  # noqa: E402
 from tsqr_tpu_torch.core import auto, cholqr, ooc, update  # noqa: E402
-from tsqr_tpu_torch import models, modes  # noqa: E402
+from tsqr_tpu_torch import modes  # noqa: E402
 from tsqr_tpu_torch.utils import experimental  # noqa: E402
 from tsqr_tpu_torch.core import tsqr as tsqr_mod  # noqa: E402
 from tsqr_tpu_torch.ops import _build, bw_probe, gram_stream as gs  # noqa: E402
 from tsqr_tpu_torch.ops import panel_kernel as pk  # noqa: E402
 from tsqr_tpu_torch.utils import latms, timing, validation  # noqa: E402
+from tsqr_tpu_torch.utils import native  # noqa: E402
+from tsqr_tpu_torch.harness import dist as dist_h  # noqa: E402
+from tsqr_tpu_torch.parallel import launch  # noqa: E402
 
 N = 128
 M_MAIN = 1 << 20
@@ -125,8 +134,18 @@ M_OOC, OOC_CHUNK = 1 << 25, 1 << 20
 M_RESUME, RESUME_CHUNK, RESUME_FAULT = 1 << 22, 1 << 19, 12
 RESUME_EXIT = 17     # the child's exit code after its injected fault
 # the models phase: each entry at the width its users run
-M_MODEL = 1 << 20
+# (harness/dist.py's model_runs), graded in float64
 MODEL_TOL = 1e-5
+# the distributed phase: DIST_WORLD ranks on the card, each holding
+# (2^20, 128) of a global (2^22, 128) (harness/dist.py)
+DIST_WORLD = dist_h.WORLD
+DIST_TOL = 1e-5      # global orthogonality and residual of every driver
+DIST_TIMEOUT = 600   # seconds a spawned group may take
+# mesh route against single card, where 1e-5 is not the grade: lstsq's
+# x carries kappa = 1e2 times the factorization's error (as the models
+# phase's gate), Nystrom's lam the float32 whitening's error (ditto)
+MODEL_DIST_TOL = {"lstsq ridge=0.0": 1e2 * MODEL_TOL,
+                  "lstsq ridge=0.01": 1e2 * MODEL_TOL, "nystrom": 5e-2}
 
 
 def rel(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -963,6 +982,8 @@ def phase_regen() -> dict:
             raise AssertionError(f"qr_regen {mode} at 2^26: orth "
                                  f"{orth:.2e} (max {REGEN_ORTH_MAX:.2e}), "
                                  f"residual {res:.2e}")
+        if mode == "bf16x6_cor":
+            r_bf16x6 = r.float().cpu()   # the distributed phase's reference
         del r
     print("regen_csv (data/bigm2.csv schema; the JAX package's rows at this "
           "shape read orthogonality, residual "
@@ -995,7 +1016,7 @@ def phase_regen() -> dict:
     del b
     if not err < 1e-4:
         raise AssertionError(f"lstsq_regen at 2^26: x off x* by {err:.2e}")
-    return out
+    return out, r_bf16x6
 
 
 def host_uniform(m: int, seed: int) -> torch.Tensor:
@@ -1135,7 +1156,8 @@ def phase_resume() -> dict:
 
 def phase_ooc() -> dict:
     t0 = time.perf_counter()
-    out = {"regen": phase_regen()}
+    out = {}
+    out["regen"], out["regen_r"] = phase_regen()
     print(json.dumps({"ooc_regen": out["regen"]}), flush=True)
     out["host"] = phase_ooc_host()
     print(json.dumps({"ooc_host": out["host"]}), flush=True)
@@ -1146,266 +1168,307 @@ def phase_ooc() -> dict:
     return out
 
 
-def card_latms(m: int, n: int, s: torch.Tensor, gen) -> torch.Tensor:
-    """(m, n) float32 U diag(s) V^T made on the card: U, V the Q factors
-    of Gaussians (utils/latms.py's construction, at sizes numpy would take
-    minutes for)."""
-    u = torch.linalg.qr(torch.randn(m, n, device="cuda", generator=gen)).Q
-    v = torch.linalg.qr(torch.randn(n, n, device="cuda", generator=gen)).Q
-    s = s.to("cuda", torch.float64)
-    return ((u.double() * s) @ v.double().T).float()
+# the float64 gates of each model entry, on the single card and on the
+# mesh route alike (readings of harness/dist.py's model_runs); x's
+# forward error in lstsq is kappa = 1e2 times the factorization's grade;
+# Nystrom's lam carries the float32 whitening's error, which grows with
+# the order in both packages
+def _below(limit: float, *keys):
+    return lambda r: all(r[k] < limit for k in keys)
 
 
-def model_row(name: str, fn, check, reps: int = 3) -> dict:
-    """One model entry: run ``fn`` ``reps`` times (CUDA events), hold the
-    first result to ``check`` (which returns its readings and raises on a
-    failed gate), and record the launches of that first call."""
-    out, counts, ms = timed(fn, reps)
-    row = {"ms_median": float(np.median(ms)), "ms": ms,
-           "launches": kernel_launches(counts), **check(out)}
-    print(json.dumps({"model": name, **row}), flush=True)
-    return row
+MODEL_GATES = {
+    "tsqr_svd": _below(MODEL_TOL, "s_rel_err_vs_fp64", "u_orthogonality",
+                       "residual"),
+    "polar": lambda r: (_below(MODEL_TOL, "u_orthogonality", "residual")(r)
+                        and r["h_asymmetry"] == 0
+                        and r["h_min_eig_rel"] > -1e-5),
+    "procrustes": lambda r: (r["rotation_err"] < 1e-3
+                             and r["orthogonality"] < MODEL_TOL),
+    "rsvd": _below(MODEL_TOL, "u_orthogonality", "residual"),
+    "block_lanczos": _below(MODEL_TOL, "basis_orthogonality", "top_rel_err"),
+    "lstsq ridge=0.0": _below(1e2 * MODEL_TOL, "x_rel_err_vs_fp64"),
+    "lstsq ridge=0.01": _below(1e2 * MODEL_TOL, "x_rel_err_vs_fp64"),
+    "lstsq_cgls": lambda r: r["iters"] <= 80 and r["residual_excess"] < 1e-3,
+    "pivoted_qr": lambda r: (r["rank_from_diag_b"] == N // 2 and _below(
+        MODEL_TOL, "residual", "q_orthogonality")(r)),
+    "interpolative": _below(1e-4, "reconstruction"),
+    "cur": _below(1e-4, "reconstruction"),
+    "subspace_iteration": _below(MODEL_TOL, "eig_rel_err",
+                                 "v_orthogonality"),
+    "nystrom": lambda r: (r["lam_rel_err"] < 5e-2
+                          and r["u_orthogonality"] < MODEL_TOL),
+    "cca": lambda r: min(r["top2"]) > 0.99 and r["rest_max"] < 0.2,
+}
+MODEL_GATES["cca auto"] = MODEL_GATES["cca cholqr2"] = MODEL_GATES["cca"]
 
 
-def gate(ok: bool, what: str, readings: dict) -> dict:
-    if not ok:
-        raise AssertionError(f"{what}: {readings}")
-    return readings
+def readings(row: dict) -> dict:
+    """A model row without its result tensors, for a JSON line."""
+    return {k: v for k, v in row.items() if not isinstance(v, torch.Tensor)}
 
 
 def phase_models(seed: int) -> dict:
-    """Every entry of models/ on the card at the width its users run:
-    gates per entry, ms (median of 3 by CUDA events) and the stream and
-    panel kernel launches of its first call."""
+    """Every entry of models/ on the card at the width its users run
+    (``harness/dist.py``'s ``model_runs``, which the distributed phase's
+    mesh routes share): the float64 gates of MODEL_GATES per entry, ms
+    (3 calls between CUDA events) and the stream and panel kernel
+    launches of its first call, counted from 0."""
     t0 = time.perf_counter()
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    dev = torch.device("cuda")
-    rows = {}
-
-    def rand(*shape):
-        return torch.rand(*shape, device=dev, generator=g) * 2 - 1
-
-    def orth(u):
-        return validation.orthogonality_accurate(u)
-
-    # tsqr_svd through the stream kernel (cholqr3_fused)
-    a = rand(M_MODEL, N)
-    s64 = torch.linalg.eigvalsh(a.double().T @ a.double()).flip(0).sqrt()
-
-    def svd_check(out):
-        u, s, vt = out
-        r = {"s_rel_err_vs_fp64": float(((s.double() - s64).abs() / s64)
-                                        .max()),
-             "u_orthogonality": orth(u),
-             "residual": validation.residual_accurate(a, u * s, vt)}
-        return gate(max(r.values()) < MODEL_TOL, "tsqr_svd", r)
-
-    rows["tsqr_svd"] = model_row("tsqr_svd", lambda: models.tsqr_svd(
-        a, MODE, "cholqr3_fused"), svd_check)
-
-    # rsvd: exactly rank 120 at (2^20, 512), two panel-kernel trees
-    low = rand(M_MODEL, 120) @ rand(120, 512)
-
-    def rsvd_check(out):
-        u, s, vt = out
-        r = {"u_orthogonality": orth(u),
-             "residual": validation.residual_accurate(low, u * s, vt)}
-        return gate(max(r.values()) < MODEL_TOL, "rsvd", r)
-
-    rows["rsvd"] = model_row("rsvd", lambda: models.rsvd(low, 120, g),
-                             rsvd_check)
-    del low
-
-    # block Lanczos on a diagonal operator with a gapped spectrum
-    d = torch.linspace(1.0, 0.0, M_MODEL, device=dev)
-    d[:8] = torch.arange(10.0, 2.0, -1.0)
-
-    def lanczos_check(out):
-        qb = out[0]
-        t = qb.double().T @ (d.double()[:, None] * qb.double())
-        top = float(torch.linalg.eigvalsh(t)[-1])
-        r = {"basis_orthogonality": orth(qb), "top_ritz": top,
-             "top_rel_err": abs(top - 10.0) / 10.0}
-        return gate(r["basis_orthogonality"] < MODEL_TOL
-                    and r["top_rel_err"] < MODEL_TOL, "block_lanczos", r)
-
-    rows["block_lanczos"] = model_row("block_lanczos", lambda: models
-                                      .block_lanczos(lambda x: d[:, None] * x,
-                                                     M_MODEL, 128, 8, g),
-                                      lanczos_check)
-
-    # lstsq: BlockQR's shape, latms kappa = 1e2, plain and ridge; x's
-    # expected forward error is kappa times the factorization's grade
-    m_l, n_l, kappa_l = M_WIDE, N_WIDE, 1e2
-    al = card_latms(m_l, n_l, torch.logspace(0, -math.log10(kappa_l), n_l),
-                    g)
-    x_star = torch.randn(n_l, device=dev, generator=g)
-    bl = al @ x_star + 1e-3 * torch.randn(m_l, device=dev, generator=g)
-    a64, b64 = al.double(), bl.double()
-    x64 = torch.linalg.lstsq(a64, b64[:, None]).solution[:, 0]
-    lam = 1e-2
-    x64r = torch.linalg.solve(a64.T @ a64 + lam * torch.eye(
-        n_l, dtype=torch.float64, device=dev), a64.T @ b64)
-    del a64
-    for ridge, ref in ((0.0, x64), (lam, x64r)):
-        def lstsq_check(out, ref=ref, ridge=ridge):
-            r = {"x_rel_err_vs_fp64": rel(out, ref)}
-            return gate(r["x_rel_err_vs_fp64"] < kappa_l * MODEL_TOL,
-                        f"lstsq ridge={ridge}", r)
-
-        rows[f"lstsq ridge={ridge}"] = model_row(
-            f"lstsq ridge={ridge}", lambda ridge=ridge: models.lstsq(
-                al, bl, ridge=ridge), lstsq_check)
-    del al, bl
-
-    # lstsq_cgls at kappa = 1e4
-    s_c = torch.empty(N, dtype=torch.float64).uniform_(0.01, 1.0)
-    s_c = s_c.sort(descending=True).values
-    s_c[0], s_c[-1] = 1.0, 1e-4
-    ac = card_latms(M_MODEL, N, s_c, g)
-    bc = rand(M_MODEL)
-    xc64 = torch.linalg.lstsq(ac.double(), bc.double()[:, None]).solution
-    r_opt = float(torch.linalg.norm(ac.double() @ xc64 - bc.double()[:, None]))
-
-    def cgls_check(out):
-        x, info = out
-        r_got = float(torch.linalg.norm(ac.double() @ x.double() - bc.double()))
-        r = {"iters": info["iters"],
-             "grad_rel_max": float(info["grad_rel"].max()),
-             "residual_excess": r_got / r_opt - 1}
-        return gate(r["iters"] <= 80 and r["residual_excess"] < 1e-3,
-                    "lstsq_cgls", r)
-
-    rows["lstsq_cgls"] = model_row("lstsq_cgls", lambda: models.lstsq_cgls(
-        lambda v: ac @ v, lambda v: ac.T @ v, bc, N, gen=g, tol=1e-6),
-        cgls_check)
-    del ac, bc
-
-    # pivoted QR at rank 64, every other column zero: the ladder runs
-    # through tier 4 (tier 3's shifted passes orthonormalize a product of
-    # Gaussians of inner width 64, or repeated columns, by filling the
-    # null directions with amplified rounding; a zero column stays zero)
-    a64r = rand(M_MODEL, N)
-    a64r[:, 1::2] = 0.0
-
-    def pqr_check(out):
-        q, r_, piv, db = out
-        rank = int((db > 1e-5 * db[0]).sum())
-        r = {"rank_from_diag_b": rank,
-             "residual": validation.residual_accurate(a64r[:, piv], q, r_),
-             "q_orthogonality": orth(q)}
-        return gate(rank == 64 and r["residual"] < MODEL_TOL
-                    and r["q_orthogonality"] < MODEL_TOL, "pivoted_qr", r)
-
-    rows["pivoted_qr"] = model_row("pivoted_qr", lambda: models.pivoted_qr(
-        a64r, g, MODE), pqr_check)
+    rows = dist_h.model_runs(seed, count=dist_h.Count(), reps=3)
+    failed = []
+    for name, row in rows.items():
+        row["ms_median"] = float(np.median(row["ms"]))
+        print(json.dumps({"model": name, **readings(row)}), flush=True)
+        if not MODEL_GATES[name](row):
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"models phase: {failed}")
     if rows["pivoted_qr"]["launches"]["panel_qr"] < 1:
         raise AssertionError("pivoted_qr did not reach tier 4's panel kernel")
-    del a64r
-
-    # interpolative and CUR at exact rank 32
-    a32 = rand(M_MODEL, 32) @ rand(32, N)
-
-    def id_check(out):
-        cols, coeff, _ = out
-        r = {"reconstruction": rel(a32[:, cols] @ coeff, a32)}
-        return gate(r["reconstruction"] < 1e-4, "interpolative", r)
-
-    def cur_check(out):
-        cols, u, rws = out
-        r = {"reconstruction": rel(a32[:, cols] @ u @ a32[rws], a32)}
-        return gate(r["reconstruction"] < 1e-4, "cur", r)
-
-    rows["interpolative"] = model_row("interpolative", lambda: models
-                                      .interpolative(a32, g, 32), id_check)
-    rows["cur"] = model_row("cur", lambda: models.cur(a32, g, 32), cur_check)
-    del a32
-
-    # polar through the ladder
-    def polar_check(out):
-        u, h = out
-        r = {"u_orthogonality": orth(u),
-             "residual": validation.residual_accurate(a, u, h),
-             "h_asymmetry": float((h - h.T).abs().max()),
-             "h_min_eig_rel": float(torch.linalg.eigvalsh(h.double())[0]
-                                    / torch.linalg.matrix_norm(
-                                        h.double(), 2))}
-        return gate(r["u_orthogonality"] < MODEL_TOL
-                    and r["residual"] < MODEL_TOL and r["h_asymmetry"] == 0
-                    and r["h_min_eig_rel"] > -1e-5, "polar", r)
-
-    rows["polar"] = model_row("polar", lambda: models.polar(a, MODE),
-                              polar_check)
-
-    # procrustes with a planted rotation
-    om_true = torch.linalg.qr(torch.randn(N, N, device=dev, generator=g)).Q
-    b = a @ om_true + 1e-4 * torch.randn(M_MODEL, N, device=dev, generator=g)
-
-    def procrustes_check(om):
-        r = {"rotation_err": float(torch.linalg.norm(om - om_true))
-             / math.sqrt(N), "orthogonality": orth(om)}
-        return gate(r["rotation_err"] < 1e-3
-                    and r["orthogonality"] < MODEL_TOL, "procrustes", r)
-
-    rows["procrustes"] = model_row("procrustes", lambda: models.procrustes(
-        a, b), procrustes_check)
-    del b
-
-    # subspace iteration and Nystrom on diagonal operators
-    ds = torch.linspace(1.0, 0.0, M_MODEL, device=dev)
-    ds[:36] = torch.linspace(10.0, 4.0, 36)
-
-    def sub_check(out):
-        w, v, res = out
-        r = {"eig_rel_err": float(((w - ds[:32]).abs() / ds[:32]).max()),
-             "v_orthogonality": orth(v),
-             "max_resid": float(res.max())}
-        return gate(r["eig_rel_err"] < MODEL_TOL
-                    and r["v_orthogonality"] < MODEL_TOL,
-                    "subspace_iteration", r)
-
-    rows["subspace_iteration"] = model_row(
-        "subspace_iteration", lambda: models.subspace_iteration(
-            lambda x: ds[:, None] * x, M_MODEL, 32, g, iters=20,
-            return_resid=True), sub_check)
-    # exact rank 64, a 10x range: the float32 whitening's error grows
-    # with the order in both packages (max relative error of lam on the
-    # CPU: 8e-4 at 2^13, 2.5e-3 at 2^16), so lam is held at 5e-2
-    dn = torch.zeros(M_MODEL, device=dev)
-    dn[:64] = torch.linspace(1.0, 0.1, 64)
-
-    def nys_check(out):
-        u, lam_ = out
-        r = {"lam_rel_err": float(((lam_ - dn[:64]).abs() / dn[:64]).max()),
-             "u_orthogonality": orth(u)}
-        return gate(r["lam_rel_err"] < 5e-2
-                    and r["u_orthogonality"] < MODEL_TOL, "nystrom", r)
-
-    rows["nystrom"] = model_row("nystrom", lambda: models.nystrom(
-        lambda x: dn[:, None] * x, M_MODEL, 64, g), nys_check)
-
-    # cca: two planted shared directions, each QR route
-    z = torch.randn(M_MODEL, 2, device=dev, generator=g)
-    x = torch.cat([z + 0.05 * torch.randn(M_MODEL, 2, device=dev,
-                                          generator=g),
-                   torch.randn(M_MODEL, N - 2, device=dev, generator=g)], 1)
-    y = torch.cat([z + 0.05 * torch.randn(M_MODEL, 2, device=dev,
-                                          generator=g),
-                   torch.randn(M_MODEL, 62, device=dev, generator=g)], 1)
-
-    def cca_check(out):
-        c = out[0]
-        r = {"top2": c[:2].tolist(), "rest_max": float(c[2:].max())}
-        return gate(min(r["top2"]) > 0.99 and r["rest_max"] < 0.2, "cca", r)
-
-    for method in ("tsqr", "auto", "cholqr2"):
-        rows[f"cca {method}"] = model_row(
-            f"cca {method}", lambda method=method: models.cca(
-                x, y, method=method), cca_check)
-    del x, y, a
     seconds = time.perf_counter() - t0
     print(json.dumps({"models_phase_seconds": seconds}), flush=True)
     return {"rows": rows, "seconds": seconds}
+
+
+def phase_distributed(seed: int, ooc_run: dict, models_run: dict) -> dict:
+    """The distributed layer on the card: ``parallel.launch.spawn`` of
+    DIST_WORLD ranks on card 0 (gloo, the payloads staged through host
+    memory), each holding (2^20, 128) of a global (2^22, 128); every
+    driver, the models' mesh routes and three drivers' gradients
+    (``harness/dist.py``), each held to the single-card result of the
+    same global input (the models phase's rows for the models); then a
+    one-rank NCCL group.  Prints the ``distributed`` JSON line and
+    returns the ranks' kernel launches."""
+    t0 = time.perf_counter()
+    ref = {}
+    singles = {
+        "dqr_auto tier1": lambda a: tsqr_tpu_torch.qr_auto_fused(
+            a, MODE, return_info=True),
+        "dtsqr allgather": lambda a: tsqr_tpu_torch.tsqr(a, MODE),
+        "dcholqr cholqr2 fp32": lambda a: cholqr.fastqr(a, "fp32", "cholqr2"),
+        "dcholqr cholqr3 fp32": lambda a: cholqr.fastqr(a, "fp32", "cholqr3"),
+        "dcholqr cholqr2 bf16x6_cor": lambda a: cholqr.fastqr(a, MODE,
+                                                              "cholqr2"),
+        "dcholqr cholqr3 bf16x6_cor": lambda a: cholqr.fastqr(a, MODE,
+                                                              "cholqr3"),
+        "dqr reorth": lambda a: tsqr_tpu_torch.qr(a, MODE, reorth=True),
+    }
+    singles["dqr_auto tier4"] = singles["dqr_auto tier1"]
+    singles["dtsqr butterfly"] = singles["dtsqr_hier 2x2"] = singles[
+        "dtsqr allgather"]
+    glob, done = {}, {}
+    for name, (kind, _) in dist_h.DRIVERS.items():
+        if kind not in glob:
+            glob = {kind: torch.cat([dist_h.driver_input(kind, seed, i)
+                                     for i in range(DIST_WORLD)])}
+        a, fn = glob[kind], singles[name]
+        key = (kind, fn)   # the three trees share one single-card tsqr
+        if key not in done:
+            out, ms = dist_h._timed(lambda: fn(a))
+            ms = [ms] + timing.time_cuda(lambda: fn(a), reps=2, warmup=0)
+            done[key] = {"r": out[1].float().cpu(),
+                         "tier": out[2]["tier"] if len(out) == 3 else None,
+                         "ms": float(np.median(ms))}
+            del out
+        ref[name] = done[key]
+    a = glob.get("a")
+    if a is None:
+        a = torch.cat([dist_h.driver_input("a", seed, i)
+                       for i in range(DIST_WORLD)])
+    sk_gen = torch.Generator(device=dist_h.DEVICE).manual_seed(seed)
+    ref["dsketch"] = {"ms": float(np.median(timing.time_cuda(
+        lambda: cholqr.sketch_gaussian(a, sk_gen, dist_h.SKETCH_L), reps=3,
+        warmup=0))), "s": torch.linalg.svdvals(ref["dtsqr allgather"]["r"]
+                                               .double())}
+    ref["dqr_regen"] = {"r": ooc_run["regen_r"],
+                        "ms": ooc_run["regen"]["bf16x6_cor cholqr2"]
+                        ["ms_median"]}
+    del glob, a
+    torch.cuda.empty_cache()
+    t_drivers = time.perf_counter() - t0
+    ga, w1, w2 = dist_h.grad_inputs(seed)
+    gm = dist_h.GRAD_MODE
+    entries = {"dtsqr": lambda x: tsqr_tpu_torch.tsqr(x, gm),
+               "dcholqr": lambda x: tsqr_tpu_torch.fastqr(x, gm, "cholqr3"),
+               "dqr_auto": lambda x: tsqr_tpu_torch.qr_auto_fused(x, gm)}
+    ref_grads = {}
+    for name, entry in entries.items():
+        x = ga.clone().requires_grad_()
+        q, r = entry(x)
+        dist_h.loss(q, r, w1, w2).backward()
+        ref_grads[name] = x.grad.cpu()
+    del ga, w1, w2, x, q, r
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+
+    backend = launch.pick_backend(DIST_WORLD, "cuda")
+    t1 = time.perf_counter()
+    ranks = launch.spawn(DIST_WORLD, dist_h.driver_rank, (seed,),
+                         device="cuda", timeout=DIST_TIMEOUT)
+    t_ranks = time.perf_counter() - t1
+    nccl = launch.spawn(1, dist_h.nccl_rank, (seed,), backend="nccl",
+                        device="cuda", timeout=DIST_TIMEOUT)[0]
+
+    drivers, failures = {}, []
+    for name in list(dist_h.DRIVERS) + ["dqr_regen", "dsketch"]:
+        rows = [rk["drivers"][name] for rk in ranks]
+        row = {"ms_max_over_ranks": max(float(np.median(x["ms"]))
+                                        for x in rows),
+               "single_card_ms": ref[name]["ms"],
+               "wire": rows[0]["wire"],
+               "panel_launches_per_rank": [x["launches"]["panel_qr"]
+                                           for x in rows]}
+        if name == "dsketch":
+            b = rows[0]["b"].double()
+            ratio = (torch.linalg.svdvals(b) / math.sqrt(dist_h.SKETCH_L)
+                     / ref["dsketch"]["s"])
+            row["sketch_sv_ratio"] = [float(ratio.min()), float(ratio.max())]
+            row["b_same_on_every_rank"] = all(torch.equal(x["b"], rows[0]["b"])
+                                              for x in rows)
+            ok = (0.2 < row["sketch_sv_ratio"][0]
+                  and row["sketch_sv_ratio"][1] < 5.0
+                  and row["b_same_on_every_rank"])
+        else:
+            r = rows[0]["r"]
+            md = name.split()[-1] if name.startswith("dcholqr") else MODE
+            tol = auto._TOL[auto.M(md)]
+            row.update(orthogonality=rows[0]["orthogonality"],
+                       residual=rows[0]["residual"],
+                       r_max_diff_across_ranks=max(
+                           float((x["r"] - r).abs().max()) for x in rows))
+            r1 = ref[name]["r"]
+            if name == "dqr_auto tier4":
+                # a zero column: R's rows past it are not unique, R^T R
+                # (= A^T A) is
+                r, r1 = r.double(), r1.double()
+                row["rtr_rel_vs_single_card"] = rel(r.T @ r, r1.T @ r1)
+            else:
+                row["r_rel_vs_single_card"] = rel(sign_fixed(r, r1), r1)
+            ok = (row["orthogonality"] < DIST_TOL
+                  and row["residual"] < DIST_TOL
+                  and max(row.get("r_rel_vs_single_card", 0.0),
+                          row.get("rtr_rel_vs_single_card", 0.0)) <= tol)
+            if name in dist_h.TREE_DRIVERS:
+                ok = ok and row["r_max_diff_across_ranks"] == 0.0
+            if "tier" in rows[0]:
+                row["tier"] = [x["tier"] for x in rows]
+                row["single_card_tier"] = ref[name]["tier"]
+                ok = ok and set(row["tier"]) == {ref[name]["tier"]}
+        row["ok"] = bool(ok)
+        if not ok:
+            failures.append(name)
+        drivers[name] = row
+
+    models_rows = {}
+    for name, got in ranks[0]["models"].items():
+        single = models_run["rows"][name]
+        # first calls on both sides
+        row = {"ms_max_over_ranks": max(rk["models"][name]["ms"][0]
+                                        for rk in ranks),
+               "single_card_ms": single["ms"][0],
+               "panel_launches_per_rank": [
+                   rk["models"][name]["launches"]["panel_qr"]
+                   for rk in ranks]}
+        for key, val in got.items():
+            if key in ("ms", "launches"):
+                continue
+            if isinstance(val, torch.Tensor):
+                row[f"{key}_rel_vs_single_card"] = rel(val, single[key])
+                row[f"{key}_same_on_every_rank"] = all(
+                    torch.equal(rk["models"][name][key], val)
+                    for rk in ranks)
+            else:
+                row[key] = val
+                row[f"{key}_single_card"] = single[key]
+        ok = all(row[k] for k in row if k.endswith("_same_on_every_rank"))
+        ok = ok and all(row[k] < MODEL_DIST_TOL.get(name, MODEL_TOL)
+                        for k in row if k.endswith("_rel_vs_single_card"))
+        ok = ok and MODEL_GATES[name](got)
+        row["ok"] = bool(ok)
+        if not ok:
+            failures.append(f"models.{name}")
+        models_rows[name] = row
+
+    grads = {}
+    for name, g_ref in ref_grads.items():
+        g = torch.cat([rk["grads"][name] for rk in ranks])
+        grads[name] = rel(g, g_ref)
+        if not grads[name] <= GRAD_TOL:
+            failures.append(f"grad {name}")
+    nccl_rows = {}
+    for name in ("dqr_auto", "dtsqr"):
+        resid, orth = nccl[name]["metrics"]
+        a0 = dist_h.driver_input("a", seed, 0)
+        q1, r1 = tsqr_tpu_torch.tsqr(a0, MODE)
+        nccl_rows[name] = {"residual": resid, "orthogonality": orth,
+                           "tier": nccl[name]["tier"], "ms": nccl[name]["ms"],
+                           "wire": nccl[name]["wire"],
+                           "r_rel_vs_single_card": rel(
+                               sign_fixed(nccl[name]["r"], r1.float().cpu()),
+                               r1.float().cpu())}
+        del a0, q1, r1
+        if not (resid < DIST_TOL and orth < DIST_TOL
+                and nccl_rows[name]["r_rel_vs_single_card"] <= DIST_TOL):
+            failures.append(f"nccl {name}")
+    staged = sum(row["wire"]["host_staged"] for row in drivers.values())
+    launches = {k: [rk["launches"][k] for rk in ranks]
+                for k in ranks[0]["launches"]}
+    line = {"distributed": {
+        "backend": backend, "world": DIST_WORLD,
+        "card": torch.cuda.get_device_name(0),
+        "shape": f"({DIST_WORLD} x {dist_h.M_RANK}, {N}) f32 {MODE}",
+        "gates": {"orthogonality_residual": DIST_TOL,
+                  "r_vs_single_card": "core/auto.py _TOL of the mode",
+                  "grad": GRAD_TOL,
+                  "models": "MODEL_GATES, and MODEL_DIST_TOL (else "
+                            "MODEL_TOL) against the single card"},
+        "drivers": drivers, "models": models_rows,
+        "grad_rel_vs_single_card": grads, "nccl_one_rank": {
+            "backend": nccl["backend"], **nccl_rows},
+        "host_staged_payloads": staged, "launches_per_rank": launches,
+        "seconds": {"single_card_refs": t_ref,
+                    "single_card_driver_refs": t_drivers,
+                    "ranks": t_ranks,
+                    "phase": time.perf_counter() - t0},
+        "gates_passed": not failures, "failed": failures}}
+    print(json.dumps(line), flush=True)
+    if failures:
+        raise AssertionError(f"distributed phase: {failures}")
+    if min(launches["panel_qr"]) < 1:
+        raise AssertionError(f"distributed path launches {launches}")
+    return launches
+
+
+def phase_native() -> None:
+    """The native emulation cores (utils/native.py, g++) against the
+    port's emulation products on the card: clip_mantissa bitwise, the
+    three GEMMs at tests/test_native_emu.py's tolerances."""
+    t0 = time.perf_counter()
+    native._load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    xs = rng.uniform(-4, 4, 256).astype(np.float32)
+    out = {"library": str(native.library_path().name), "build_s": build_s}
+    for bits in (7, 10):
+        card = modes.clip_mantissa(torch.from_numpy(xs).cuda(), bits).cpu()
+        cpp = np.array([native.clip_mantissa_scalar(float(x), bits)
+                        for x in xs], np.float32)
+        out[f"clip_{bits}_bitwise"] = bool(np.array_equal(card.numpy(), cpp))
+    a = rng.uniform(-1, 1, (32, 48)).astype(np.float32)
+    b = rng.uniform(-1, 1, (48, 24)).astype(np.float32)
+    ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    gemms = {"nocor": (native.emu_gemm_nocor, modes.mm_bf16_nocor_emu, 1e-4),
+             "cor": (native.emu_gemm_cor, modes.mm_bf16x3_cor_emu, 1e-5),
+             "mixed": (native.emu_gemm_mixed, modes.mm_mixed_cor_emu, 1e-5)}
+    for name, (cpp, emu, tol) in gemms.items():
+        err = float(np.max(np.abs(cpp(a, b, bits=7)
+                                  - emu(ta, tb).cpu().numpy())))
+        out[f"{name}_max_abs_diff"] = err
+        out[f"{name}_ok"] = err < tol
+    print(json.dumps({"native": out}), flush=True)
+    if not all(v for k, v in out.items() if k.endswith(("_ok", "bitwise"))):
+        raise AssertionError(f"native phase: {out}")
 
 
 def panel_entry(tier4: dict) -> dict:
@@ -1477,16 +1540,18 @@ def probe_entry(name: str, counts: dict, gen) -> dict:
     return entry
 
 
-def launches_by_path(ooc_run: dict, models_run: dict) -> dict:
-    """{path: {kernel: launches}} of the ooc and models phases, each
-    path's counts set to 0 just before its first call and read just
-    after."""
+def launches_by_path(ooc_run: dict, models_run: dict,
+                     dist_run: dict) -> dict:
+    """{path: {kernel: launches}} of the ooc, models and distributed
+    phases, each path's counts set to 0 just before its first call and
+    read just after; the distributed path's a list, one count a rank."""
     paths = {("models." if k.startswith("lstsq") else "ooc.qr_regen ")
              + k: v["launches"]
              for k, v in ooc_run["regen"].items() if "launches" in v}
     paths["ooc.qr_out_of_core"] = ooc_run["host"]["launches"]
     paths.update({f"models.{k}": v["launches"]
                   for k, v in models_run["rows"].items()})
+    paths["distributed"] = dist_run
     return paths
 
 
@@ -1641,8 +1706,11 @@ def main() -> int:
     phase_profile(tier4)
     ooc_run = phase_ooc()
     models_run = phase_models(args.seed)
+    dist_run = phase_distributed(args.seed, ooc_run, models_run)
+    phase_native()
     phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4,
-                       bw_run, inplace, launches_by_path(ooc_run, models_run))
+                       bw_run, inplace,
+                       launches_by_path(ooc_run, models_run, dist_run))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

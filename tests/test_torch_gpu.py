@@ -614,3 +614,51 @@ def test_precision_harness_on_card(card):
     assert all(v["blocks"] < 1e-4 for k, v in grams.items()
                if isinstance(v, dict))
     assert out[f"regen_q_orthogonality_{1 << 14}x128"]["fp32"] < 1e-5
+
+
+def test_native_emulation_matches_card_modes(card):
+    from tsqr_tpu_torch import modes
+    from tsqr_tpu_torch.utils import native
+
+    rng = np.random.default_rng(0)
+    xs = rng.uniform(-4, 4, 256).astype(np.float32)
+    for bits in (7, 10):
+        on_card = modes.clip_mantissa(torch.from_numpy(xs).to(card), bits)
+        cx = np.array([native.clip_mantissa_scalar(float(x), bits)
+                       for x in xs], np.float32)
+        np.testing.assert_array_equal(on_card.cpu().numpy(), cx)
+    a = rng.uniform(-1, 1, (32, 48)).astype(np.float32)
+    b = rng.uniform(-1, 1, (48, 24)).astype(np.float32)
+    ta, tb = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+    for emu, fn, tol in ((native.emu_gemm_nocor, modes.mm_bf16_nocor_emu,
+                          1e-4),
+                         (native.emu_gemm_cor, modes.mm_bf16x3_cor_emu, 1e-5),
+                         (native.emu_gemm_mixed, modes.mm_mixed_cor_emu,
+                          1e-5)):
+        got = fn(ta, tb).cpu().numpy()
+        assert np.max(np.abs(emu(a, b, bits=7) - got)) < tol, emu.__name__
+
+
+def test_distributed_drivers_on_card(card):
+    import _torch_parallel_ranks as ranks
+    from tsqr_tpu_torch.core import tsqr
+    from tsqr_tpu_torch.ops import _build
+    from tsqr_tpu_torch.parallel import launch
+
+    _build.build(("panel_qr",))     # once, before the ranks load it
+    a = np.random.default_rng(5).uniform(-1, 1, (1 << 16, N)).astype(
+        np.float32)
+    out = launch.spawn(2, ranks.card_cases, (a,), device="cuda",
+                       timeout=300)
+    r_one = tsqr.tsqr(torch.from_numpy(a).to(card), "fp32")[1].double()
+    sign = torch.sign(torch.diagonal(r_one)).cpu().numpy()
+    for name in out[0]:
+        rs = [o[name] for o in out]
+        resid, orth = rs[0]["metrics"]
+        assert resid < 1e-5 and orth < 1e-5, (name, resid, orth)
+        r = rs[0]["r"]
+        r = r * (np.sign(np.diag(r)) * sign)[:, None]
+        assert _rel(torch.from_numpy(r), r_one.cpu()) < 1e-5, name
+        if name in ("allgather", "butterfly"):
+            assert all(np.array_equal(x["r"], rs[0]["r"]) for x in rs)
+            assert all(x["panel_launches"] > 0 for x in rs)

@@ -43,13 +43,19 @@ DEFAULT_PANEL_WIDTH = 128
 
 def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
                 tsqr_fn: Callable, reorth: bool, full: bool = False,
-                project: bool = True) -> None:
+                project: bool = True,
+                reduce: Callable[[Tensor], Tensor] = lambda x: x) -> None:
     """One BlockQR panel, in place: project against Q, factor, write
     Q_b and R's column block at c0.  The projections run against the
     growing slice Q[:, :c0], or with ``full`` against all of Q, whose
     columns at >= c0 are zero so that the products agree; the leading
     panel (c0 = 0) skips the projections, which are provably zero, and
-    so does every panel without ``project``."""
+    so does every panel without ``project``.
+
+    ``reduce`` wraps the two projection contractions (Q^T A_b and
+    Q^T Q_b): the identity here, a sum over the ranks in the distributed
+    BlockQR (``parallel/dtsqr.py``), whose Q holds this rank's rows
+    only."""
     w = a_b.shape[1]
     first = c0 == 0 or not project
     qp = q if full else q[:, :c0]
@@ -57,7 +63,7 @@ def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
         r12 = None
         a_p = a_b
     else:
-        r12 = mm(qp.T, a_b)
+        r12 = reduce(mm(qp.T, a_b))
         a_p = a_b - mm(qp, r12)
     if not reorth:
         q_b, r22 = tsqr_fn(a_p)
@@ -68,7 +74,7 @@ def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
         r22 = mm(w_fac, r2)
     else:
         q_b, r2 = tsqr_fn(a_p)
-        s2 = mm(qp.T, q_b)
+        s2 = reduce(mm(qp.T, q_b))
         q_b = q_b - mm(qp, s2)
         q_b, w_fac = tsqr_fn(q_b)
         r12 = r12 + mm(s2, r2)

@@ -464,13 +464,16 @@ _K2_EXIT = 4.0
 
 
 def _iter_shifted_loop(g0: Tensor, gram_of_f: Callable, shift_of_g: Callable,
-                       n: int, k2_polish: float, max_shifted: int):
+                       n: int, k2_polish: float, max_shifted: int,
+                       agree: Callable[[bool], bool] = bool):
     """The pass loop of the iterated method, on the host.
 
     Each pass factors G (unshifted when the k2 bound clears the polish
     budget and the unshifted Cholesky is finite, else shifted), composes
     the factor into F and R_total, and re-derives G = Gram(A F) in one
     m-scale pass.  The loop test reads (k2, orthg) in one sync per pass.
+    ``agree`` makes the loop's exit one decision of every rank where
+    ``gram_of_f`` is a collective (``parallel/comm.agree``).
     Returns (F, R_total, G, n_passes, orthg_exit)."""
     eye = torch.eye(n, dtype=torch.float32, device=g0.device)
 
@@ -482,7 +485,7 @@ def _iter_shifted_loop(g0: Tensor, gram_of_f: Callable, shift_of_g: Callable,
     while True:
         k2_h, orthg_h = torch.cat([k2, orthg]).reshape(2).tolist()
         converged = orthg_h < _ORTH_EXIT or k2_h < _K2_EXIT  # NaN: False
-        if i >= max_shifted or converged:
+        if agree(i >= max_shifted or converged):
             return f, rt, g, i, orthg_h
         r_u = _chol_r(g, shift=None)
         r_s = _chol_r(g, shift=shift_of_g(g))
@@ -586,12 +589,23 @@ def cholqr_iter_fused(a: Tensor, mode="fp32", g1: Tensor | None = None,
 # ---- randomized (sketch-preconditioned) CholeskyQR --------------------------
 
 def sketch_gaussian(a: Tensor, gen: torch.Generator, l: int,
-                    chunk_rows: int = 1 << 16) -> Tensor:
+                    chunk_rows: int = 1 << 16, mesh=None) -> Tensor:
     """B = Omega A with Omega an (l, m) standard Gaussian, drawn chunk by
     chunk of ``chunk_rows`` rows from ``gen`` (a generator on A's device)
     and never held whole; full float32 products whatever the mode.  The
     draw is not the JAX package's (its chunks are ``fold_in(key, i)``):
-    statistics, not values, are the contract."""
+    statistics, not values, are the contract.
+
+    ``mesh``: ``a`` is this rank's row shard (``parallel.mesh``) and
+    ``gen`` is seeded alike on every rank; the sketch is
+    ``parallel.dtsqr.dsketch`` seeded by one draw from ``gen``, B the
+    same on every rank."""
+    if mesh is not None:
+        from tsqr_tpu_torch.parallel import dtsqr
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                                 device=gen.device))
+        return dtsqr.dsketch(a, seed, l, mesh, chunk_rows=chunk_rows,
+                             device=a.device)
     m, n = a.shape
     a32 = a.to(torch.float32)
     b = a32.new_zeros(l, n)
@@ -604,7 +618,7 @@ def sketch_gaussian(a: Tensor, gen: torch.Generator, l: int,
 
 
 def rand_cholqr(a: Tensor, mode="fp32", seed: int = 0, embed: float = 2.0,
-                passes: int = 2) -> tuple[Tensor, Tensor]:
+                passes: int = 2, mesh=None) -> tuple[Tensor, Tensor]:
     """Randomized CholeskyQR: kappa-independent orthogonality in a fixed
     number of passes.  B = Omega A (l = embed n rows, rounded up to a
     multiple of 8), R_s = qr(B).R with a positive diagonal,
@@ -612,11 +626,27 @@ def rand_cholqr(a: Tensor, mode="fp32", seed: int = 0, embed: float = 2.0,
     (1 or 2) CholeskyQR iterations on X at the mode's grade;
     R = R_x R_s.  Deterministic given ``seed`` on one device; R is unique
     (positive diagonal), so it agrees with the reference's to the mode's
-    grade though the sketches differ.  Requires m >= l."""
+    grade though the sketches differ.  Requires m >= l.
+
+    ``mesh``: ``a`` is this rank's row shard (``parallel.mesh``); the
+    sketch is ``parallel.dtsqr.dsketch`` from ``seed`` (one (l, n)
+    all-reduce), the preconditioner QR is the same small work on every
+    rank, and each Gram is summed over the ranks.  Q comes back as this
+    rank's rows."""
     policy = modes.resolve(mode)
     if passes not in (1, 2):
         raise ValueError(f"rand_cholqr: passes must be 1 or 2, got {passes}")
     m, n = a.shape
+    if mesh is not None:
+        # parallel/ imports this module: imported at call time
+        from tsqr_tpu_torch.parallel import comm, dtsqr, mesh as mesh_mod
+        axis = mesh_mod.row_axes(mesh)
+        m *= comm.axes_size(mesh, axis)
+
+    def gram(x):   # summed over the ranks under a mesh
+        g = modes.gram(x, policy)
+        return g if mesh is None else comm.psum(g, mesh, axis)
+
     l = max(int(embed * n), n + 8)
     l = -(-l // 8) * 8
     if m < l:
@@ -625,16 +655,20 @@ def rand_cholqr(a: Tensor, mode="fp32", seed: int = 0, embed: float = 2.0,
             f"for the subspace embedding, got m={m}; use blockqr/tsqr "
             "for near-square inputs")
     a32 = a.to(torch.float32)
-    gen = torch.Generator(device=a.device).manual_seed(seed)
-    r_s = torch.linalg.qr(sketch_gaussian(a32, gen, l), mode="r").R
+    if mesh is None:
+        gen = torch.Generator(device=a.device).manual_seed(seed)
+        b = sketch_gaussian(a32, gen, l)
+    else:
+        b = dtsqr.dsketch(a32, seed, l, mesh, device=a.device)
+    r_s = torch.linalg.qr(b, mode="r").R
     r_s = r_s * torch.where(torch.diagonal(r_s) < 0, -1.0, 1.0)[:, None]
     # the preconditioner is applied at full precision whatever the mode
     x = modes.mm_fp32(a32, _rinv(r_s))
-    r1 = _chol_r(modes.gram(x, policy))
+    r1 = _chol_r(gram(x))
     q = _q_pass(x, r1, policy.mm)
     rt = modes.mm_fp32(r1, r_s)
     if passes == 2:
-        r2 = _chol_r(modes.gram(q, policy))
+        r2 = _chol_r(gram(q))
         rt = modes.mm_fp32(r2, rt)
         q = _q_pass(q, r2, policy.mm)
     return q.to(policy.io_dtype), torch.triu(rt).to(policy.io_dtype)

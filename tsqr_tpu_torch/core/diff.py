@@ -26,6 +26,14 @@ tensor given to an entry on the card gets its gradient on the CPU.
 Caveats (shared with ``torch.linalg.qr``'s rule): m >= n (every entry
 enforces it) and a full-rank R; at exact rank deficiency the
 factorization is not unique and the derivative grows with R^{-1}.
+
+The distributed drivers (``parallel/dtsqr.py``) carry the same rule
+over their row shards: each rank holds its rows of A and Q and the
+whole R, so the (n, n) contractions over m become sums over the ranks
+(``reduce``): Q^T dQ and dR in reverse mode, Q^T X in forward mode.
+The global loss is the sum of the ranks' losses: a term in the
+replicated R is added on one rank only.  The sums are ``comm.psum``;
+the distributed rule is tested to first order.
 """
 
 from __future__ import annotations
@@ -52,7 +60,12 @@ def _rtsolve(r: Tensor, x: Tensor) -> Tensor:
     return torch.linalg.solve_triangular(r.mT, x, upper=False, left=False)
 
 
-def qr_tangent(q: Tensor, r: Tensor, da: Tensor) -> tuple[Tensor, Tensor]:
+def _identity(x: Tensor) -> Tensor:
+    return x
+
+
+def qr_tangent(q: Tensor, r: Tensor, da: Tensor,
+               reduce=_identity) -> tuple[Tensor, Tensor]:
     """Tangents (dQ, dR) from the primal (Q, R) and the input tangent dA.
 
     The unique solution of dA = dQ R + Q dR, dQ^T Q + Q^T dQ = 0, dR
@@ -62,25 +75,30 @@ def qr_tangent(q: Tensor, r: Tensor, da: Tensor) -> tuple[Tensor, Tensor]:
         dQ = X - Q (S - dO)
         dR = (S - dO) R
 
-    Computed in float32 whatever the io dtype; the caller casts back."""
+    Computed in float32 whatever the io dtype; the caller casts back.
+    ``reduce`` sums S over the ranks of a distributed factorization,
+    whose Q and dA hold this rank's rows."""
     f32 = torch.float32
     q, r, da = q.to(f32), r.to(f32), da.to(f32)
     x = _rsolve(r, da)
-    s = modes.mm_fp32(q.T, x)
+    s = reduce(modes.mm_fp32(q.T, x))
     low = torch.tril(s, -1)
     sd = s - (low - low.T)
     return x - modes.mm_fp32(q, sd), modes.mm_fp32(sd, r)
 
 
-def qr_adjoint(q: Tensor, r: Tensor, dq: Tensor, dr: Tensor) -> Tensor:
+def qr_adjoint(q: Tensor, r: Tensor, dq: Tensor, dr: Tensor,
+               reduce=_identity) -> Tensor:
     """Cotangent dA from (Q, R, dQ, dR): the explicit reduced-QR adjoint,
     in float32 whatever the io dtype.  The strictly lower triangle of dR
     is dropped first: R's zeros there are structural, so no cotangent
-    flows through them."""
+    flows through them.  ``reduce`` sums Q^T dQ and dR over the ranks of
+    a distributed factorization, whose Q and dQ hold this rank's rows and
+    whose dR is this rank's share."""
     f32 = torch.float32
     q, r = q.to(f32), r.to(f32)
-    dq, dr = dq.to(f32), torch.triu(dr.to(f32))
-    qdq = modes.mm_fp32(q.T, dq)
+    dq, dr = dq.to(f32), reduce(torch.triu(dr.to(f32)))
+    qdq = reduce(modes.mm_fp32(q.T, dq))
     m_ = (qdq - qdq.T) + (modes.mm_fp32(r, dr.T) - modes.mm_fp32(dr, r.T))
     return (modes.mm_fp32(q, dr + _rtsolve(r, torch.tril(m_)))
             + _rtsolve(r, dq - modes.mm_fp32(q, qdq)))
@@ -88,10 +106,12 @@ def qr_adjoint(q: Tensor, r: Tensor, dq: Tensor, dr: Tensor) -> Tensor:
 
 class _EntryQR(torch.autograd.Function):
     """(Q, R) = entry(a, *args, **kwargs) with the QR rule: ``a`` is the
-    only tensor input; the entry and its other arguments pass through."""
+    only tensor input; the entry and its other arguments pass through,
+    and ``reduce`` is the rule's sum over ranks (the identity for a
+    single-process entry)."""
 
     @staticmethod
-    def forward(a, entry, args, kwargs):
+    def forward(a, entry, args, kwargs, reduce):
         with torch.no_grad():
             return entry(a, *args, **kwargs)
 
@@ -99,18 +119,20 @@ class _EntryQR(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         q, r = output
         ctx.a_dtype = inputs[0].dtype
+        ctx.reduce = inputs[4]
         ctx.save_for_backward(q, r)
         ctx.save_for_forward(q, r)
 
     @staticmethod
     def backward(ctx, dq, dr):
         q, r = ctx.saved_tensors
-        return qr_adjoint(q, r, dq, dr).to(ctx.a_dtype), None, None, None
+        da = qr_adjoint(q, r, dq, dr, ctx.reduce)
+        return da.to(ctx.a_dtype), None, None, None, None
 
     @staticmethod
     def jvp(ctx, da, *_):
         q, r = ctx.saved_tensors
-        dq, dr = qr_tangent(q, r, da)
+        dq, dr = qr_tangent(q, r, da, ctx.reduce)
         return dq.to(q.dtype), dr.to(r.dtype)
 
 
@@ -125,7 +147,7 @@ def _differentiating(a: Tensor) -> bool:
     return fwad.unpack_dual(a).tangent is not None
 
 
-def differentiable(fn=None, *, unless=None):
+def differentiable(fn=None, *, unless=None, reduce=None):
     """Decorator: reverse- and forward-mode differentiability in ``a`` for
     an ``(a, ..., device=None) -> (Q, R)`` entry point, through
     :func:`qr_adjoint` and :func:`qr_tangent`.
@@ -137,9 +159,13 @@ def differentiable(fn=None, *, unless=None):
     placed on the entry's device before the rule, by a differentiable
     move.  A call whose ``a`` can carry no derivative goes straight to
     the entry, before any argument is bound: the ladder's host syncs
-    leave every microsecond of host time a call exposed."""
+    leave every microsecond of host time a call exposed.
+
+    ``reduce(bound_args)`` returns the rule's sum over ranks for a
+    distributed entry (``parallel/dtsqr.py``); None is the identity."""
     if fn is None:
-        return functools.partial(differentiable, unless=unless)
+        return functools.partial(differentiable, unless=unless,
+                                 reduce=reduce)
     sig = inspect.signature(fn)
     first = next(iter(sig.parameters))
 
@@ -154,6 +180,7 @@ def differentiable(fn=None, *, unless=None):
             return fn(*args, **kwargs)
         a = _device.place(a, ba.arguments.get("device"), fn.__name__)
         ba.arguments[first] = a
-        return _EntryQR.apply(a, fn, ba.args[1:], ba.kwargs)
+        red = _identity if reduce is None else reduce(ba.arguments)
+        return _EntryQR.apply(a, fn, ba.args[1:], ba.kwargs, red)
 
     return wrapper

@@ -155,15 +155,17 @@ def regen_program(gen_chunk: Callable[[int], Tensor], m: int, n: int,
 def _regen_body(gen_chunk: Callable[[int], Tensor], n_chunks: int, n: int,
                 chunk_rows: int, policy: modes.Policy, method: str,
                 reduce: Callable[[Tensor], Tensor] = lambda x: x, *,
-                device: torch.device) -> tuple[Tensor, Tensor, Tensor,
-                                                Tensor]:
+                device: torch.device,
+                agree: Callable[[bool], bool] = bool) -> tuple[
+                    Tensor, Tensor, Tensor, Tensor]:
     """The core of :func:`qr_regen`: (r, orth, resid, rinv_total).
 
     ``reduce`` wraps every cross-chunk (n, n) or scalar accumulation:
     the identity here; an all-reduce over the process group where each
-    process runs this body over its own chunk range (the JAX package's
-    ``parallel.dtsqr.dqr_regen``), so that the reduced Gram and metric
-    accumulators are the only communication."""
+    process runs this body over its own chunk range
+    (``parallel.dtsqr.dqr_regen``), so that the reduced Gram and metric
+    accumulators are the only communication.  ``agree`` makes each exit
+    test of the cholqr_iter loop one decision of every rank."""
     n_iters = _method_iters(method, {**_N_ITERS, "cholqr_iter": None})
     dev = torch.device(device)
     f32 = torch.float32
@@ -203,7 +205,7 @@ def _regen_body(gen_chunk: Callable[[int], Tensor], n_chunks: int, n: int,
         f, rt, g, _, _ = cholqr._iter_shifted_loop(
             g0, gram_of_f,
             lambda gg: cholqr._shift_value_fused(gg, n, chunk_rows),
-            n, cholqr._iter_polish_k2(policy), 16)
+            n, cholqr._iter_polish_k2(policy), 16, agree)
         # the tail factor is applied as a second product in the metrics
         # pass, to the bitwise-recomputed x F (composing it into F would
         # floor orthogonality at ~eps kappa(A))

@@ -5,8 +5,9 @@ consumers, each routing its m-scale work through the port's QR entry
 points (the stream kernel through the ladder and ``fastqr``'s fused
 methods, the panel kernel through ``tsqr`` and ``qr``).  Every entry
 runs on the card unless ``device="cpu"``; a random one takes a
-``torch.Generator`` on that device where JAX takes a key; ``mesh=`` is
-reserved for the distributed routes (ROADMAP A.7).
+``torch.Generator`` on that device where JAX takes a key.  ``mesh=``
+runs an entry over a process mesh (``tsqr_tpu_torch.parallel``): its
+inputs are the rank's row shards, its QRs the distributed drivers.
 
   * :func:`tsqr_svd`: deterministic thin SVD (QR + small SVD).
   * :func:`rsvd`: randomized SVD (sketch + TSQR orthogonalization).

@@ -1,21 +1,27 @@
-"""What the models share: the reserved ``mesh=`` parameter and the small
+"""What the models share: the sums of their mesh routes and the small
 SVD."""
 
 from __future__ import annotations
 
 import torch
 
+from tsqr_tpu_torch.parallel import comm
+from tsqr_tpu_torch.parallel import mesh as mesh_mod
+
 Tensor = torch.Tensor
 
 
-def no_mesh(mesh, what: str) -> None:
-    """Raise for a ``mesh`` other than None: the models' multi-card
-    routes run over ``parallel/`` on ``torch.distributed``, which the
-    port does not have yet (ROADMAP A.7)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...): the distributed routes wait for the port "
-            "of parallel/ (ROADMAP A.7); call it with mesh=None")
+def psum_rows(x: Tensor, mesh) -> Tensor:
+    """Sum of ``x`` over the ranks of the mesh's row axis: a contraction
+    over the sharded m axis (Q^T A, A^T Q, ...) of a model's mesh route,
+    which the JAX package leaves to GSPMD."""
+    return comm.psum(x, mesh, mesh_mod.row_axes(mesh))
+
+
+def norm_rows(x: Tensor, mesh, dim=None) -> Tensor:
+    """The 2-norm of a row-sharded ``x`` (over ``dim``, or all of it)."""
+    sq = torch.sum(x * x) if dim is None else torch.sum(x * x, dim=dim)
+    return torch.sqrt(psum_rows(sq, mesh))
 
 
 def svd(x: Tensor) -> tuple[Tensor, Tensor, Tensor]:

@@ -6,7 +6,8 @@ independently (the m-scale work), then take the thin SVD of the small
 correlations, and the weights come back through the R factors.  Working
 from Qx^T Qy instead of the covariance-whitening normal equations does
 not square kappa(X), so the result degrades directly with the QR's own
-||Q^T Q - I||.
+||Q^T Q - I||.  Under ``mesh=`` both QRs run the distributed ladder and
+Qx^T Qy is summed over the ranks.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import torch
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import auto, cholqr
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
-from tsqr_tpu_torch.models._common import no_mesh, svd
+from tsqr_tpu_torch.models._common import psum_rows, svd
+from tsqr_tpu_torch.parallel import comm, dtsqr
+from tsqr_tpu_torch.parallel import mesh as mesh_mod
 from tsqr_tpu_torch.utils import device as _device
 
 Tensor = torch.Tensor
@@ -38,8 +41,11 @@ def cca(x: Tensor, y: Tensor, rank: int | None = None, mode="fp32",
       mode: precision policy of the two m-scale orthogonalizations (the
         small SVD and solves run float32).
       center: subtract the column means first (statistical CCA).
-      mesh: reserved for the distributed route (ROADMAP A.7); it must be
-        None.
+      mesh: ``x`` and ``y`` are this rank's rows over a mesh
+        (``parallel.mesh``): both QRs run the distributed ladder
+        (``dtsqr.dqr_auto``, ``qr_kw`` going to it, ``method``
+        unused), the means and Qx^T Qy are sums over the ranks, and the
+        results are the same on every rank.
       method: the QR of each view: "tsqr" (the Householder tree; the
         panel kernel on the card), "auto" (the predictive ladder,
         ``qr_auto_fused``; the stream kernel) or any ``fastqr`` method
@@ -56,7 +62,6 @@ def cca(x: Tensor, y: Tensor, rank: int | None = None, mode="fp32",
     if method not in _ROUTES:
         raise ValueError(f"cca: unknown method {method!r}; expected 'tsqr', "
                          f"'auto' or a fastqr method {sorted(cholqr._METHODS)}")
-    no_mesh(mesh, "cca")
     x = _device.place(x, device, "cca")
     y = _device.place(y, x.device, "cca")
     m, p = x.shape
@@ -65,12 +70,19 @@ def cca(x: Tensor, y: Tensor, rank: int | None = None, mode="fp32",
         raise ValueError(f"x and y must share the observation axis: "
                          f"{m} vs {m2}")
     r = min(p, q) if rank is None else min(rank, p, q)
-    if center:
+    if center and mesh is None:
         x = x - torch.mean(x, dim=0, keepdim=True)
         y = y - torch.mean(y, dim=0, keepdim=True)
+    elif center:
+        m_glob = m * comm.axes_size(mesh, mesh_mod.row_axes(mesh))
+        x = x - psum_rows(torch.sum(x, dim=0, keepdim=True), mesh) / m_glob
+        y = y - psum_rows(torch.sum(y, dim=0, keepdim=True), mesh) / m_glob
 
     dev = x.device
-    if method == "tsqr":
+    if mesh is not None:
+        qx, rx = dtsqr.dqr_auto(x, mesh, mode, device=dev, **qr_kw)
+        qy, ry = dtsqr.dqr_auto(y, mesh, mode, device=dev, **qr_kw)
+    elif method == "tsqr":
         qx, rx = tsqr_mod.tsqr(x, mode, device=dev, **qr_kw)
         qy, ry = tsqr_mod.tsqr(y, mode, device=dev, **qr_kw)
     elif method == "auto":
@@ -81,6 +93,8 @@ def cca(x: Tensor, y: Tensor, rank: int | None = None, mode="fp32",
         qy, ry = cholqr.fastqr(y, mode, method=method, device=dev, **qr_kw)
 
     c = modes.mm_fp32(qx.to(torch.float32).T, qy.to(torch.float32))
+    if mesh is not None:
+        c = psum_rows(c, mesh)
     u, s, vt = svd(c)
     corrs = torch.clamp(s[:r], 0.0, 1.0)
     wx = torch.linalg.solve_triangular(rx.to(torch.float32), u[:, :r],

@@ -3,7 +3,9 @@
 
 Counterpart of ``tsqr_tpu/models/lanczos.py``: each Lanczos block is
 orthonormalized by TSQR (the panel kernel's tree on the card), with
-optional full reorthogonalization against the basis.
+optional full reorthogonalization against the basis.  Under ``mesh=``
+the basis is row-sharded, the blocks are orthonormalized by the
+distributed ladder and the projections are sums over the ranks.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ import torch
 
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
-from tsqr_tpu_torch.models._common import no_mesh
+from tsqr_tpu_torch.models._common import psum_rows
+from tsqr_tpu_torch.parallel import dtsqr
+from tsqr_tpu_torch.parallel import mesh as mesh_mod
 from tsqr_tpu_torch.utils import device as _device
 
 Tensor = torch.Tensor
@@ -38,28 +42,40 @@ def block_lanczos(matvec, n: int, block: int, iters: int,
     Returns (basis Q (n, block*iters), alphas (iters, b, b),
     betas (iters-1, b, b)) with Q^T A Q block-tridiagonal.  Runs on the
     card unless ``device="cpu"``; ``tsqr_kw`` go to :func:`tsqr`.
-    ``mesh``: reserved for the distributed route (ROADMAP A.7); it must
-    be None."""
-    no_mesh(mesh, "block_lanczos")
+
+    ``mesh``: run over a mesh (``parallel.mesh``): the basis is
+    row-sharded, ``matvec`` takes and returns this rank's rows, and Q
+    comes back as this rank's rows.  The start block is drawn whole from
+    ``gen`` (seeded alike on every rank) and sliced, so the route equals
+    the local one up to summation order; the orthogonalizations run the
+    distributed ladder (``dtsqr.dqr_auto``, ``tsqr_kw`` going to it)."""
     dev = _device.resolve(device, "block_lanczos")
 
     def _orth(x):
-        return tsqr_mod.tsqr(x, mode, device=dev, **tsqr_kw)
+        if mesh is None:
+            return tsqr_mod.tsqr(x, mode, device=dev, **tsqr_kw)
+        return dtsqr.dqr_auto(x, mesh, mode, device=dev, **tsqr_kw)
 
-    q, _ = _orth(_normal(gen, (n, block), dev))
+    def _sum(x):
+        return x if mesh is None else psum_rows(x, mesh)
+
+    v0 = _normal(gen, (n, block), dev)
+    if mesh is not None:
+        v0 = mesh_mod.row_shard(v0, mesh)
+    q, _ = _orth(v0)
     q = q.to(torch.float32)
     basis = [q]
     alphas, betas = [], []
     q_prev = b_prev = None
     for it in range(iters):
         w = matvec(q)
-        alpha = modes.mm_fp32(q.T, w)
+        alpha = _sum(modes.mm_fp32(q.T, w))
         w = w - modes.mm_fp32(q, alpha)
         if q_prev is not None:
             w = w - modes.mm_fp32(q_prev, b_prev.T)
         if full_reorth:
             qs = torch.cat(basis, dim=1)
-            w = w - modes.mm_fp32(qs, modes.mm_fp32(qs.T, w))
+            w = w - modes.mm_fp32(qs, _sum(modes.mm_fp32(qs.T, w)))
         alphas.append(alpha)
         if it + 1 == iters:
             break

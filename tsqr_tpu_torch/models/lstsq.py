@@ -16,7 +16,8 @@ import torch
 
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import blockqr, ooc
-from tsqr_tpu_torch.models._common import no_mesh
+from tsqr_tpu_torch.models._common import psum_rows
+from tsqr_tpu_torch.parallel import dtsqr
 from tsqr_tpu_torch.utils import device as _device
 
 Tensor = torch.Tensor
@@ -47,19 +48,28 @@ def lstsq(a: Tensor, b: Tensor, mode="fp32", reorth: bool = False,
     regularization costs one (2n, n) QR and never forms the normal
     equations.  ``qr_kw`` go to :func:`blockqr.qr`.  Runs on the card
     unless ``device="cpu"``; differentiable in ``a`` (through the QR's
-    entry rule) and ``b``.  ``mesh``: reserved for the distributed route
-    (ROADMAP A.7); it must be None."""
+    entry rule) and ``b``.
+
+    ``mesh``: ``a`` and ``b`` are this rank's rows over a mesh
+    (``parallel.mesh.row_shard`` / ``vec_shard``); the factorization is
+    the distributed BlockQR (``dtsqr.dqr``), Q^T b is summed over the
+    ranks, and x comes back whole on every rank."""
     if ridge < 0:
         raise ValueError(f"lstsq: ridge must be >= 0, got {ridge}")
-    no_mesh(mesh, "lstsq")
     a = _device.place(a, device, "lstsq")
     b = _device.place(b, a.device, "lstsq")
-    q, r = blockqr.qr(a, mode, reorth=reorth, device=a.device, **qr_kw)
+    if mesh is None:
+        q, r = blockqr.qr(a, mode, reorth=reorth, device=a.device, **qr_kw)
+    else:
+        q, r = dtsqr.dqr(a, mesh, mode, reorth=reorth, device=a.device,
+                         **qr_kw)
     q, r = q.to(torch.float32), r.to(torch.float32)
     squeeze = b.ndim == 1
     if squeeze:
         b = b[:, None]
     qtb = modes.mm_fp32(q.T, b.to(torch.float32))
+    if mesh is not None:
+        qtb = psum_rows(qtb, mesh)
     if ridge > 0:
         n = r.shape[0]
         eye = torch.eye(n, dtype=torch.float32, device=r.device)

@@ -23,7 +23,7 @@ import torch
 
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import auto, cholqr
-from tsqr_tpu_torch.models._common import no_mesh
+from tsqr_tpu_torch.parallel import dtsqr
 from tsqr_tpu_torch.utils import device as _device
 
 Tensor = torch.Tensor
@@ -122,14 +122,19 @@ def polar(a: Tensor, mode="fp32", method: str = "auto", mesh=None,
     ``method``: "auto" runs the m-scale QR through the predictive ladder
     (``qr_auto_fused``, ``qr_kw`` going to it); any other string is a
     ``fastqr`` method (e.g. "cholqr3").  Runs on the card unless
-    ``device="cpu"``.  ``mesh``: reserved for the distributed route
-    (ROADMAP A.7); it must be None."""
-    no_mesh(mesh, "polar")
+    ``device="cpu"``.
+
+    ``mesh``: ``a`` is this rank's row shard (``parallel.mesh``); the QR
+    runs the distributed ladder (``dtsqr.dqr_auto``, ``qr_kw`` going to
+    it, ``method`` unused), QDWH and U = Q1 U_r stay local, U comes back
+    as this rank's rows and H the same on every rank."""
     a = _device.place(a, device, "polar")
     m, n = a.shape
-    if m < n:
+    if mesh is not None:
+        q1, r = dtsqr.dqr_auto(a, mesh, mode, device=a.device, **qr_kw)
+    elif m < n:
         raise ValueError(f"polar requires m >= n, got {tuple(a.shape)}")
-    if method == "auto":
+    elif method == "auto":
         q1, r = auto.qr_auto_fused(a, mode, device=a.device, **qr_kw)
     else:
         q1, r = cholqr.fastqr(a, mode, method=method, device=a.device,

@@ -10,6 +10,13 @@ stream kernel on the card for b <= 128):
   * :func:`nystrom`: one-shot randomized Nystrom approximation of a PSD
     operator (Tropp et al. 2017, shifted and whitened), its thin SVD
     through the library QR.
+
+Under ``mesh=`` the block is row-sharded, ``matvec`` takes and returns
+this rank's rows, the QRs run the distributed ladder
+(``dtsqr.dqr_auto``) and the small contractions over n are sums over
+the ranks.  The Gaussian starts are drawn whole on every rank from the
+same seeded ``gen`` and sliced, so a mesh route equals the local one up
+to summation order.
 """
 
 from __future__ import annotations
@@ -18,7 +25,9 @@ import torch
 
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import auto
-from tsqr_tpu_torch.models._common import no_mesh, svd
+from tsqr_tpu_torch.models._common import norm_rows, psum_rows, svd
+from tsqr_tpu_torch.parallel import dtsqr
+from tsqr_tpu_torch.parallel import mesh as mesh_mod
 from tsqr_tpu_torch.utils import device as _device
 
 Tensor = torch.Tensor
@@ -31,8 +40,16 @@ def _normal(gen: torch.Generator, shape, device) -> Tensor:
                        dtype=torch.float32)
 
 
-def _orth(mode, dev, qr_kw):
-    return lambda y: auto.qr_auto_fused(y, mode, device=dev, **qr_kw)
+def _orth(mode, dev, mesh, qr_kw):
+    if mesh is None:
+        return lambda y: auto.qr_auto_fused(y, mode, device=dev, **qr_kw)
+    return lambda y: dtsqr.dqr_auto(y, mesh, mode, device=dev, **qr_kw)
+
+
+def _start(gen: torch.Generator, shape, dev, mesh) -> Tensor:
+    """The Gaussian start, whole, then this rank's rows under a mesh."""
+    x = _normal(gen, shape, dev)
+    return x if mesh is None else mesh_mod.row_shard(x, mesh)
 
 
 def subspace_iteration(matvec, n: int, k: int, gen: torch.Generator,
@@ -53,20 +70,21 @@ def subspace_iteration(matvec, n: int, k: int, gen: torch.Generator,
     rate |lambda_{b+1} / lambda_i| an iteration (b = k + oversample);
     each iteration is one apply and one ladder QR.  Runs on the card
     unless ``device="cpu"``; ``qr_kw`` go to :func:`qr_auto_fused`.
-    ``mesh``: reserved for the distributed route (ROADMAP A.7); it must
-    be None."""
-    no_mesh(mesh, "subspace_iteration")
+    ``mesh``: the module docstring's mesh route; v comes back as this
+    rank's rows."""
     dev = _device.resolve(device, "subspace_iteration")
     b = min(k + oversample, n)
-    orth = _orth(mode, dev, qr_kw)
+    orth = _orth(mode, dev, mesh, qr_kw)
 
-    q = orth(_normal(gen, (n, b), dev))[0].to(torch.float32)
+    q = orth(_start(gen, (n, b), dev, mesh))[0].to(torch.float32)
     for _ in range(iters):
         q = orth(matvec(q))[0].to(torch.float32)
 
     # Rayleigh-Ritz: T = Q^T A Q (symmetrized against apply noise)
     aq = matvec(q)
     t = modes.mm_fp32(q.T, aq)
+    if mesh is not None:
+        t = psum_rows(t, mesh)
     w_all, s = torch.linalg.eigh(0.5 * (t + t.T))          # ascending
     order = torch.argsort(-torch.abs(w_all), stable=True)[:k]
     w = w_all[order]
@@ -74,7 +92,9 @@ def subspace_iteration(matvec, n: int, k: int, gen: torch.Generator,
     if not return_resid:
         return w, v
     av = modes.mm_fp32(aq, s[:, order])
-    return w, v, torch.linalg.norm(av - v * w[None, :], dim=0)
+    if mesh is None:
+        return w, v, torch.linalg.norm(av - v * w[None, :], dim=0)
+    return w, v, norm_rows(av - v * w[None, :], mesh, dim=0)
 
 
 def nystrom(matvec, n: int, rank: int, gen: torch.Generator, mode="fp32",
@@ -89,18 +109,20 @@ def nystrom(matvec, n: int, rank: int, gen: torch.Generator, mode="fp32",
     SVD through the library QR), lam = max(S^2 - nu, 0).  Requires PSD A.
     Returns ``(u (n, rank), lam (rank,))`` with lam descending >= 0.
     Runs on the card unless ``device="cpu"``; ``qr_kw`` go to
-    :func:`qr_auto_fused`.  ``mesh``: reserved for the distributed route
-    (ROADMAP A.7); it must be None."""
-    no_mesh(mesh, "nystrom")
+    :func:`qr_auto_fused`.  ``mesh``: the module docstring's mesh route;
+    u comes back as this rank's rows."""
     dev = _device.resolve(device, "nystrom")
     l = min(rank + oversample, n)
-    orth = _orth(mode, dev, qr_kw)
+    orth = _orth(mode, dev, mesh, qr_kw)
 
-    omega = orth(_normal(gen, (n, l), dev))[0].to(torch.float32)
+    omega = orth(_start(gen, (n, l), dev, mesh))[0].to(torch.float32)
     y = matvec(omega).to(torch.float32)
-    nu = torch.finfo(torch.float32).eps * torch.linalg.norm(y)
+    ynorm = torch.linalg.norm(y) if mesh is None else norm_rows(y, mesh)
+    nu = torch.finfo(torch.float32).eps * ynorm
     y = y + nu * omega
     c = modes.mm_fp32(omega.T, y)                      # Omega^T Y + nu I
+    if mesh is not None:
+        c = psum_rows(c, mesh)
     w = torch.linalg.cholesky(0.5 * (c + c.T))
     b = torch.linalg.solve_triangular(w, y.T, upper=False).T
     # thin SVD of the tall (n, l) B through the library QR
