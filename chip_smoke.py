@@ -23,9 +23,10 @@ driver of ``parallel/dtsqr.py``, the models' ``mesh=`` routes and three
 drivers' gradients, each held to the single-card result of the same
 global input, then a one-rank NCCL group) and the native emulation
 cores against the card's emulation products (the ``native`` phase),
-time the stream kernel's call kinds beside those of the kernel before
-its redesign, and print the ``kernels`` JSON line and a last JSON line
-with the device.
+run ``bench_torch.py``'s headline rung in a child process as its users
+run it (the ``bench`` phase, right after the main path), time the stream
+kernel's call kinds beside those of the kernel before its redesign, and
+print the ``kernels`` JSON line and a last JSON line with the device.
 
     python3 chip_smoke.py [--seed N]
 
@@ -54,7 +55,7 @@ from tsqr_tpu_torch.harness import bw, flops, mfu  # noqa: E402
 from tsqr_tpu_torch.harness import accuracy, cond, eval_q  # noqa: E402
 from tsqr_tpu_torch.harness import compare as compare_mod  # noqa: E402
 from tsqr_tpu_torch.harness import main as harness_main  # noqa: E402
-from tsqr_tpu_torch.harness import profile  # noqa: E402
+from tsqr_tpu_torch.harness import bench, profile  # noqa: E402
 from tsqr_tpu_torch.core import auto, cholqr, ooc, update  # noqa: E402
 from tsqr_tpu_torch import modes  # noqa: E402
 from tsqr_tpu_torch.utils import experimental  # noqa: E402
@@ -141,6 +142,10 @@ MODEL_TOL = 1e-5
 DIST_WORLD = dist_h.WORLD
 DIST_TOL = 1e-5      # global orthogonality and residual of every driver
 DIST_TIMEOUT = 600   # seconds a spawned group may take
+BENCH_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "bench_torch.py")
+BENCH_TIMEOUT = 300  # seconds the bench's headline rung may take
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}  # bench.py's
 # mesh route against single card, where 1e-5 is not the grade: lstsq's
 # x carries kappa = 1e2 times the factorization's error (as the models
 # phase's gate), Nystrom's lam the float32 whitening's error (ditto)
@@ -314,7 +319,40 @@ def phase_main(gen) -> dict:
         "useful_tflops": useful / ladder_ms / 1e9,
         "torch_linalg_qr_ms": qr_ms,
         "torch_linalg_qr_tflops": useful / qr_ms / 1e9}), flush=True)
-    return {"a": a, "counts": counts}
+    return {"a": a, "counts": counts, "ladder_ms_median": ladder_ms,
+            "useful_tflops": useful / ladder_ms / 1e9}
+
+
+def phase_bench(main_run: dict) -> dict:
+    """``bench_torch.py --single`` at the headline rung, in a child
+    process, as its users run it: its last stdout line must carry
+    bench.py's four keys and a value above 0 (the orthogonality gate
+    passed), its stderr record tier 1.  Printed beside the main path's
+    reading of the same ladder; the two are not compared."""
+    t0 = time.perf_counter()
+    m, k = bench.HEADLINE
+    child = subprocess.run(
+        [sys.executable, BENCH_SCRIPT, "--single", str(m), str(k)],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    sys.stderr.write(child.stderr)
+    lines = child.stdout.strip().splitlines()
+    if child.returncode != 0 or not lines:
+        raise AssertionError(f"bench_torch.py exited {child.returncode}")
+    result = json.loads(lines[-1])
+    if (set(result) != BENCH_KEYS or result["metric"] != bench.METRIC
+            or result["unit"] != "TFLOP/s" or not result["value"] > 0):
+        raise AssertionError(f"bench_torch.py printed {result}")
+    records = [json.loads(ln.split("record ", 1)[1])
+               for ln in child.stderr.splitlines()
+               if ln.startswith("bench: record ")]
+    if not records or records[-1]["tier"] != 1:
+        raise AssertionError(f"bench_torch.py's record: {records}")
+    print(json.dumps({
+        "bench": result, "record": records[-1],
+        "main_path_ladder_ms_median": main_run["ladder_ms_median"],
+        "main_path_useful_tflops": main_run["useful_tflops"],
+        "seconds": time.perf_counter() - t0}), flush=True)
+    return records[-1]
 
 
 def tile_metrics(a, qt, r) -> tuple[float, float]:
@@ -1540,14 +1578,16 @@ def probe_entry(name: str, counts: dict, gen) -> dict:
     return entry
 
 
-def launches_by_path(ooc_run: dict, models_run: dict,
+def launches_by_path(bench_run: dict, ooc_run: dict, models_run: dict,
                      dist_run: dict) -> dict:
-    """{path: {kernel: launches}} of the ooc, models and distributed
-    phases, each path's counts set to 0 just before its first call and
-    read just after; the distributed path's a list, one count a rank."""
-    paths = {("models." if k.startswith("lstsq") else "ooc.qr_regen ")
-             + k: v["launches"]
-             for k, v in ooc_run["regen"].items() if "launches" in v}
+    """{path: {kernel: launches}} of the bench, ooc, models and
+    distributed phases, each path's counts set to 0 just before its first
+    call and read just after; the bench's its whole child process, the
+    distributed path's a list, one count a rank."""
+    paths = {"bench": bench_run["launches"]}
+    paths.update({("models." if k.startswith("lstsq") else "ooc.qr_regen ")
+                  + k: v["launches"]
+                  for k, v in ooc_run["regen"].items() if "launches" in v})
     paths["ooc.qr_out_of_core"] = ooc_run["host"]["launches"]
     paths.update({f"models.{k}": v["launches"]
                   for k, v in models_run["rows"].items()})
@@ -1559,7 +1599,7 @@ def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
                        inplace: dict, paths: dict) -> None:
     """Every kernel of the main paths at the main paths' shapes: its time,
     its plain version's time, the library call's time and the bound; the
-    stream and panel kernels' launches on the ooc and models paths
+    stream and panel kernels' launches on the bench, ooc and models paths
     beside the main path's."""
     g = gs.gram_stream(a, MODE)
     rinv = torch.linalg.solve_triangular(
@@ -1691,6 +1731,7 @@ def main() -> int:
     phase_panel_vs_plain(gen)
     phase_bw_vs_plain(gen)
     main_run = phase_main(gen)
+    bench_run = phase_bench(main_run)
     tier4 = phase_tier4(gen)
     phase_tiers(args.seed)
     phase_qr_wide(gen)
@@ -1710,7 +1751,8 @@ def main() -> int:
     phase_native()
     phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4,
                        bw_run, inplace,
-                       launches_by_path(ooc_run, models_run, dist_run))
+                       launches_by_path(bench_run, ooc_run, models_run,
+                                        dist_run))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

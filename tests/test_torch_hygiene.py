@@ -17,7 +17,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "tsqr_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -86,7 +86,9 @@ def test_scan_sees_the_whole_port():
                  "tsqr_tpu_torch/parallel/dtsqr.py",
                  "tsqr_tpu_torch/parallel/launch.py",
                  "tsqr_tpu_torch/parallel/dryrun.py",
-                 "tsqr_tpu_torch/utils/native.py", "chip_smoke.py"):
+                 "tsqr_tpu_torch/utils/native.py",
+                 "tsqr_tpu_torch/harness/bench.py", "chip_smoke.py",
+                 "bench_torch.py"):
         assert must in names
     assert _forbidden("jax.numpy") and _forbidden("tsqr_tpu.modes")
     assert not _forbidden("tsqr_tpu_torch.modes")

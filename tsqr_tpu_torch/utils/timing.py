@@ -92,19 +92,27 @@ def _on_card(x) -> bool:
     return False
 
 
-def _best_seconds(run: Callable[[], object], card: bool, reps: int,
-                  warmup: int = 1) -> float:
-    """Least seconds of ``reps`` calls of ``run()`` after ``warmup``."""
+def windows_ms(run: Callable[[], object], card: bool, reps: int,
+               warmup: int = 1) -> list[float]:
+    """Milliseconds of each of ``reps`` calls of ``run()`` after
+    ``warmup``: CUDA events on the card (:func:`time_cuda`), else
+    ``time.perf_counter``."""
     if card:
-        return min(time_cuda(run, reps=reps, warmup=warmup)) / 1e3
+        return time_cuda(run, reps=reps, warmup=warmup)
     for _ in range(warmup):
         run()
-    best = float("inf")
+    times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         run()
-        best = min(best, time.perf_counter() - t0)
-    return best
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def _best_seconds(run: Callable[[], object], card: bool, reps: int,
+                  warmup: int = 1) -> float:
+    """Least seconds of ``reps`` calls of ``run()`` after ``warmup``."""
+    return min(windows_ms(run, card, reps, warmup)) / 1e3
 
 
 def _per_call(window: float, calls: int, resolution_nan: bool) -> float:
