@@ -116,7 +116,9 @@ def test_ladder_bf16_matches_jax_tier():
 
 @pytest.mark.parametrize("kappa", [1, 1e3, 2 ** 18])
 def test_ladder_past_the_kernel_range_matches_jax_tier(kappa):
-    # n = 200 > 128: both ladders run modes.gram and the non-fused methods
+    # n = 200 > 128: the port's ladder runs its fused pipelines (the wide
+    # kernels' range, their plain version on the CPU), the JAX package's
+    # its non-fused ones off the TPU; both take the same tier
     m, n = 2048, 200
     a = (np.random.default_rng(3).uniform(-1, 1, (m, n)).astype(np.float32)
          if kappa == 1 else latms.rand_matrix_with_cond(9, m, n, kappa)[0])

@@ -39,6 +39,14 @@ def test_run_prints_bench_py_keys(n):
     _check_line(bench.run(4096, n, 2, device="cpu"))
 
 
+@pytest.mark.parametrize("tflops,want", [(44.13149, 44.131),
+                                         (0.00041234, 0.000412), (0.0, 0.0)])
+def test_value_is_zero_only_when_the_rate_is(tflops, want):
+    # bench.py's 3 decimals, but a slow device's rate does not read as a
+    # failed gate
+    assert bench.reported(tflops) == want
+
+
 def test_gate_zeroes_the_value(monkeypatch):
     monkeypatch.setattr(validation, "orthogonality_accurate",
                         lambda q: 1e-3)

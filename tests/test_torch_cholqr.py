@@ -181,7 +181,7 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="unknown method"):
         cholqr.fastqr(a, "fp32", method="cholqr4", device="cpu")
     with pytest.raises(ValueError, match="fused-kernel range"):
-        cholqr.cholqr1_fused(torch.zeros(512, 256), "fp32",
+        cholqr.cholqr1_fused(torch.zeros(2064, 2056), "fp32",
                              return_qgram=True)
     with pytest.raises(ValueError, match="m >= n"):
         cholqr.fastqr(a.T.contiguous(), "fp32", method="cholqr1_fused",

@@ -159,11 +159,167 @@ def test_kernel_raises_on_what_it_does_not_take(card):
     a, rinv, _ = _inputs(card, 256)
     with pytest.raises(ValueError, match="chunk"):
         gram_stream.stream(a, gram_mode="fp32", chunk=512)
-    with pytest.raises(ValueError, match="n <="):
-        gram_stream.stream(torch.zeros(512, 256, device=card),
-                           gram_mode="fp32")
+    # past the wide kernels' range, in every mode (n = 256 runs them)
+    for mode in ("fp32", "bf16x6_cor"):
+        with pytest.raises(ValueError, match="n <="):
+            gram_stream.stream(torch.zeros(2100, 2056, device=card),
+                               gram_mode=mode)
     with pytest.raises(ValueError, match="at most 3"):
         gram_stream.stream(a, (rinv,) * 4, ("fp32",) * 4, write_q=True)
+
+
+# the wide kernels (128 < n <= 2048, every mode): shapes over one and
+# several row chunks (gram_stream.WIDE_CHUNK_ROWS slabs; 6144 rows a chunk
+# at n = 1024), and the widest n
+WIDE_SHAPES = ((1001, 200), (7001, 1024), (40000, 256), (3001, 2048))
+WIDE_TOL = {"fp32": 1e-6, "bf16x6_cor": 1e-6, "bf16x3_cor": 1e-5,
+            "bf16": 4e-3}
+
+
+def _wide_sites(mode, rinv, delta):
+    """Each call kind of the wide pass: (rinvs, dot modes, residual,
+    write_q, Gram)."""
+    return {
+        "gram_only": ((), (), (), False, True),
+        "qpass": ((rinv,), (mode,), (), True, False),
+        "dot_gram": ((rinv,), (mode,), (), False, True),
+        "qpass_gram": ((rinv,), (mode,), (), True, True),
+        "residual": ((rinv, delta), (mode, "bf16x3_cor"), (False, True),
+                     True, True),
+        "chain3": ((rinv, delta, delta), (mode,) * 3, (False, True, True),
+                   True, False),
+    }
+
+
+@pytest.mark.parametrize("m,n", WIDE_SHAPES)
+@pytest.mark.parametrize("mode", list(WIDE_TOL))
+def test_wide_kernels_match_plain_version(card, mode, m, n):
+    a, rinv, delta = _inputs(card, m, n, seed=n)
+    io = torch.bfloat16 if mode == "bf16" else torch.float32
+    a = a.to(io)
+    for site, (rs, dm, res, wq, gram) in _wide_sites(mode, rinv,
+                                                     delta).items():
+        kw = dict(residual=res, write_q=wq, gram_mode=mode if gram else None,
+                  out_dtype=io)
+        got = gram_stream.stream(a, rs, dm, **kw)
+        ref = gram_stream.stream_reference(a, rs, dm, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if wq:
+            assert got[0].dtype == io and got[0].shape == (m, n)
+            assert _rel(got[0], ref[0]) <= WIDE_TOL[mode], (site, "q")
+        if gram:
+            p, p0 = got[-1], ref[-1]
+            assert _rel(p + p.T, p0 + p0.T) <= WIDE_TOL[mode], (site, "g")
+
+
+@pytest.mark.parametrize("io", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp32", "bf16x3_cor", "bf16x6_cor"])
+def test_wide_kernels_at_an_odd_width(card, mode, io):
+    """n = 201: rows not 16-byte aligned (4-byte copies, scalar loads in
+    the split), a ragged last tile of every kind; A in float32 and bf16."""
+    m, n = 3001, 201
+    a, rinv, delta = _inputs(card, m, n, seed=5)
+    a = a.to(io)
+    for site, (rs, dm, res, wq, gram) in _wide_sites(mode, rinv,
+                                                     delta).items():
+        kw = dict(residual=res, write_q=wq, gram_mode=mode if gram else None,
+                  out_dtype=torch.float32)
+        got = gram_stream.stream(a, rs, dm, **kw)
+        ref = gram_stream.stream_reference(a, rs, dm, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if wq:
+            assert _rel(got[0], ref[0]) <= WIDE_TOL[mode], (site, "q")
+        if gram:
+            p, p0 = got[-1], ref[-1]
+            assert _rel(p + p.T, p0 + p0.T) <= WIDE_TOL[mode], (site, "g")
+    a1 = a.clone()
+    q = gram_stream.stream(a1, (rinv,), (mode,), write_q=True, alias_q=True)
+    assert torch.equal(q, gram_stream.stream(a, (rinv,), (mode,),
+                                             write_q=True))
+    assert q.data_ptr() == a1.data_ptr()
+
+
+@pytest.mark.parametrize("m,n", WIDE_SHAPES)
+def test_wide_bitwise_recompute_and_alias_q(card, m, n):
+    """A Gram-only and a Q-writing call with the same dots give the same
+    Gram, Q re-read through an identity fp32 dot gives it again, and
+    alias_q writes the same Q over A, for one dot and two."""
+    a, rinv, delta = _inputs(card, m, n, seed=7)
+    eye = torch.eye(n, device=card)
+    for dots, res in ((((rinv, delta), ("bf16x6_cor", "bf16x3_cor")),
+                       (False, True)),
+                      (((rinv,), ("bf16x6_cor",)), (False,))):
+        p_gram = gram_stream.stream(a, *dots, residual=res,
+                                    gram_mode="bf16x6_cor")
+        q, p_q = gram_stream.stream(a, *dots, residual=res, write_q=True,
+                                    gram_mode="bf16x6_cor")
+        p_re = gram_stream.stream(q, (eye,), ("fp32",),
+                                  gram_mode="bf16x6_cor")
+        assert torch.equal(p_gram, p_q) and torch.equal(p_re, p_q)
+        for gram in (None, "bf16x6_cor"):
+            kw = dict(residual=res, write_q=True, gram_mode=gram)
+            ref = gram_stream.stream(a, *dots, **kw)
+            a1 = a.clone()
+            got = gram_stream.stream(a1, *dots, alias_q=True, **kw)
+            ref, got = (ref, got) if gram else ((ref,), (got,))
+            assert got[0].data_ptr() == a1.data_ptr()
+            assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    ab = a.bfloat16()
+    ref = gram_stream.stream(ab, (rinv,), ("bf16",), write_q=True,
+                             gram_mode="bf16")
+    a1 = ab.clone()
+    got = gram_stream.stream(a1, (rinv,), ("bf16",), write_q=True,
+                             gram_mode="bf16", alias_q=True)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(a1, ref[0])
+
+
+def test_wide_launch_counters(card):
+    """Each wide kernel adds one a launch: a dot a chunk, a Gram a chunk,
+    the reduction once a call; the n <= 128 kernel none."""
+    m, n = 7001, 1024
+    a, rinv, delta = _inputs(card, m, n)
+    chunks = -(-m // gram_stream._wide_lib().stream_wide_chunk_rows(n))
+    assert chunks >= 2
+
+    def counts():
+        return (gram_stream.WIDE_LAUNCHES, gram_stream.WIDE_GRAM_LAUNCHES,
+                gram_stream.WIDE_FP32_LAUNCHES,
+                gram_stream.WIDE_GRAM_FP32_LAUNCHES,
+                gram_stream.REDUCE_LAUNCHES, gram_stream.LAUNCHES,
+                gram_stream.WIDE_SPLIT_LAUNCHES)
+
+    before = counts()
+    gram_stream.stream(a, (rinv, delta), ("bf16x6_cor", "bf16x3_cor"),
+                       residual=(False, True), write_q=True,
+                       gram_mode="bf16x6_cor")
+    after = counts()
+    assert tuple(x - y for x, y in zip(after, before)) == (
+        2 * chunks, chunks, 0, 0, 1, 0, 1)
+    # the fp32 kernels count apart from the split modes'
+    gram_stream.stream(a, (rinv, delta), ("fp32", "bf16x3_cor"),
+                       residual=(False, True), write_q=True,
+                       gram_mode="fp32")
+    assert tuple(x - y for x, y in zip(counts(), after)) == (
+        chunks, 0, chunks, chunks, 1, 0, 1)
+
+
+def test_wide_kernels_raise_rather_than_fall_back(card):
+    a, rinv, _ = _inputs(card, 1001, 256)
+    with pytest.raises(ValueError, match="chunk"):
+        gram_stream.stream(a, gram_mode="bf16x6_cor", chunk=1024)
+    with pytest.raises(ValueError, match="at most 3"):
+        gram_stream.stream(a, (rinv,) * 4, ("fp32",) * 4, write_q=True)
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        gram_stream.stream(a.double(), gram_mode="fp32")
+    launches = gram_stream.WIDE_LAUNCHES, gram_stream.WIDE_GRAM_LAUNCHES
+    with pytest.raises(ValueError, match="n <="):
+        gram_stream.stream(torch.zeros(2100, 2050, device=card), (
+            torch.eye(2050, device=card),), ("bf16x3_cor",), write_q=True)
+    assert (gram_stream.WIDE_LAUNCHES,
+            gram_stream.WIDE_GRAM_LAUNCHES) == launches
 
 
 def _tiles(card, b, L, n, seed=1):

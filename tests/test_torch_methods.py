@@ -130,12 +130,12 @@ def test_inplace_raises_as_jax_does():
         cholqr.cholqr2_fused(a, "bf16x6_cor", variant="fastest", inplace=True)
     with pytest.raises(ValueError, match="recompute pipeline"):
         cholqr.cholqr3_fused(a, "fp32", variant="safe", inplace=True)
-    wide = torch.zeros(512, 256)
+    # past the JAX package's kernel range at each mode (1024, 2048)
     with pytest.raises(ValueError, match="fused-kernel range"):
-        cholqr.cholqr2_fused(wide, "bf16x6_cor", variant="compact",
-                             inplace=True)
+        cholqr.cholqr2_fused(torch.zeros(1040, 1032), "bf16x6_cor",
+                             variant="compact", inplace=True)
     with pytest.raises(ValueError, match="fused-kernel range"):
-        cholqr.cholqr1_fused(wide, "fp32", inplace=True)
+        cholqr.cholqr1_fused(torch.zeros(2064, 2056), "fp32", inplace=True)
     with pytest.raises(ValueError, match="unsupported method"):
         tsqr_tpu_torch.fastqr_inplace(a, "fp32", "cholqr2", device="cpu")
     # a copy would hold Q, not the caller's array
@@ -144,25 +144,27 @@ def test_inplace_raises_as_jax_does():
 
 
 def test_fused_methods_delegate_past_the_kernel_range():
-    # n = 200 > 128: the fused methods run their non-fused siblings, as
-    # the JAX package does past its kernel's range; the capacity variants
+    # past the JAX package's kernel range at the mode (n = 1032 > 1024 at
+    # bf16x3_cor; n = 2056 > 2048 at fp32) the fused methods run their
+    # non-fused siblings, as the JAX package does; the capacity variants
     # and the ladder hooks raise instead
-    a = torch.from_numpy(_matrix(2048, 200, 10))
-    for fused, plain in (("cholqr1_fused", "cholqr1"),
-                         ("cholqr2_fused", "cholqr2"),
-                         ("cholqr3_fused", "cholqr3"),
-                         ("cholqr_iter_fused", "cholqr_iter")):
-        q, r = cholqr.fastqr(a, "fp32", fused, device="cpu")
-        q1, r1 = cholqr.fastqr(a, "fp32", plain, device="cpu")
-        assert torch.equal(q, q1) and torch.equal(r, r1)
+    for mode, (m, n) in (("bf16x3_cor", (1040, 1032)), ("fp32", (2064, 2056))):
+        a = torch.from_numpy(_matrix(m, n, 10))
+        for fused, plain in (("cholqr1_fused", "cholqr1"),
+                             ("cholqr2_fused", "cholqr2"),
+                             ("cholqr3_fused", "cholqr3"),
+                             ("cholqr_iter_fused", "cholqr_iter")):
+            q, r = cholqr.fastqr(a, mode, fused, device="cpu")
+            q1, r1 = cholqr.fastqr(a, mode, plain, device="cpu")
+            assert torch.equal(q, q1) and torch.equal(r, r1)
+        for method, variant in (("cholqr2_fused", "turbo"),
+                                ("cholqr3_fused", "compact")):
+            with pytest.raises(ValueError, match="fused-kernel range"):
+                cholqr.fastqr(a, mode, method, variant, device="cpu")
+        with pytest.raises(ValueError, match="fused-kernel range"):
+            cholqr.cholqr_iter_fused(a, mode, return_qgram=True)
     q, _ = cholqr.fastqr(a, "fp32", "cholqr2_fused", "fastest", device="cpu")
     assert validation.orthogonality(q) < 1e-5
-    for method, variant in (("cholqr2_fused", "turbo"),
-                            ("cholqr3_fused", "compact")):
-        with pytest.raises(ValueError, match="fused-kernel range"):
-            cholqr.fastqr(a, "fp32", method, variant, device="cpu")
-    with pytest.raises(ValueError, match="fused-kernel range"):
-        cholqr.cholqr_iter_fused(a, "fp32", return_qgram=True)
 
 
 def test_fastqr_takes_every_method_of_jax():

@@ -3,8 +3,9 @@
 
 Counterpart of ``tsqr_tpu/core/auto.py``.  Each ``lax.cond`` of the
 reference is a Python branch on one synced device scalar.  Within the
-stream kernel's range (n <= 128) and with fused methods, tiers 0-3 run
-the fused pipelines over ``ops.gram_stream.stream``; past it, or with
+stream kernels' range (n <= ``cholqr._fused_n_max``: 1024 for
+bf16x6_cor and bf16x3_cor, else 2048) and with fused methods, tiers 0-3
+run the fused pipelines over ``ops.gram_stream.stream``; past it, or with
 non-fused methods, they run the plain products of ``modes.gram`` and
 ``Policy.mm`` and the non-fused methods, as the reference does off its
 kernel's range.  Tier 4 is ``core.blockqr.qr`` over the TSQR tree, whose
@@ -61,9 +62,9 @@ def _orth_of_gram(g: Tensor) -> Tensor:
 
 def _gate_orth(q: Tensor) -> Tensor:
     """Orthogonality of Q for the ladder's gates: the Kahan streaming
-    Gram at bf16x6_cor grade within the kernel's range, a float64 Gram
-    past it."""
-    if q.shape[1] <= gram_stream.N_MAX:
+    Gram at bf16x6_cor grade within the fused range at that mode, a
+    float64 Gram past it."""
+    if q.shape[1] <= cholqr._fused_n_max(modes.resolve("bf16x6_cor")):
         return _orth_of_gram(gram_stream.gram_stream(q, "bf16x6_cor"))
     q64 = q.to(torch.float64)
     return _orth_of_gram(q64.T @ q64)
@@ -140,7 +141,8 @@ def qr_auto_fused(a: Tensor, mode="fp32",
     :func:`blockqr.qr`, and None takes the tree's defaults (the kernel
     leaf, the largest tile its shared memory holds at this n, fan-in
     ``tsqr.DEFAULT_FANIN``).  The fused pipelines run where the method
-    is fused and n <= 128; elsewhere their non-fused siblings.
+    is fused and n <= ``cholqr._fused_n_max``; elsewhere their non-fused
+    siblings.
 
     Runs on the card unless ``device="cpu"``.  Differentiable in ``a``
     (``core/diff.py``) unless ``return_info``.

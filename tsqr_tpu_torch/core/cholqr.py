@@ -4,9 +4,10 @@ Counterpart of ``tsqr_tpu/core/cholqr.py``.  Two families:
 
 * the fused methods (``cholqr1_fused``, ``cholqr2_fused``,
   ``cholqr3_fused``, ``cholqr_iter_fused``): every m-scale pass goes
-  through ``ops.gram_stream.stream``, the stream kernel, for n <= 128
-  (``_fused_n_max``); past it each delegates to its non-fused sibling,
-  as the reference does past its own kernel range;
+  through ``ops.gram_stream.stream``, the stream kernels, for n up to
+  ``_fused_n_max`` (the reference's range: 1024 for bf16x6_cor and
+  bf16x3_cor, 2048 for the other modes); past it each delegates to its
+  non-fused sibling, as the reference does;
 * the non-fused methods (``cholqr1``, ``cholqr2``, ``cholqr3``,
   ``cholqr_iter``, ``rand_cholqr``): their products are the split
   products of ``modes.gram`` and ``Policy.mm``, plain float32 PyTorch
@@ -58,10 +59,14 @@ def _rinv(r: Tensor) -> Tensor:
 
 
 def _fused_n_max(policy: modes.Policy) -> int:
-    """Widest n the stream kernel takes, for every mode: its tiles and
-    its Gram accumulators are laid out for at most N_MAX columns."""
-    del policy
-    return gram_stream.N_MAX
+    """Widest n the fused methods stream at the policy's mode, the
+    reference's ``_fused_n_max`` (its TPU kernel's VMEM limit): 1024 for
+    the multi-part corrected modes, 2048 for the others.  The stream
+    kernels take every mode up to ``gram_stream.WIDE_N_MAX``, so each
+    call of a pipeline in this range runs, whatever its correction's
+    mode."""
+    multi_part = (modes.ComputeMode.BF16X6_COR, modes.ComputeMode.BF16X3_COR)
+    return 1024 if policy.mode in multi_part else gram_stream.WIDE_N_MAX
 
 
 def _in_fused_range(a: Tensor, policy: modes.Policy) -> bool:
@@ -688,7 +693,8 @@ def fastqr(a: Tensor, mode="fp32", method: str = "cholqr3",
     (plain products), cholqr{1,2,3}_fused (the stream kernel),
     cholqr_iter[_fused] (the iterated shifted loop) and rand_cholqr
     (seed 0).  ``variant`` exists for cholqr2_fused and cholqr3_fused
-    only; past the kernel's range (n > 128) the fused methods run their
+    only; past the kernels' range (n > ``_fused_n_max``: 1024 for
+    bf16x6_cor and bf16x3_cor, else 2048) the fused methods run their
     non-fused siblings, "fast"/"fastest" dropping to the full-grade
     product and "compact"/"turbo" raising.  Runs on the card unless
     ``device="cpu"``.  Differentiable in ``a`` (``core/diff.py``)."""

@@ -8,10 +8,11 @@ mode.  Zero padding is exact: padded rows lie below every pivot, so they
 never enter a reflector, and their Q rows come out exactly 0.
 
 The leaf is the panel kernel (``ops/csrc/panel_qr.cu``, through
-``ops.panel_kernel``) unless the caller asks for the Householder of
-``ops.householder``.  The kernel returns Q^T (B, n, L); the tree keeps
-it as it is and reads it through a transposed view in the backward
-product.  The inner nodes, (fanin n, n) tiles, use the blocked
+``ops.panel_kernel``) for n <= 128 and the blocked Householder of
+``ops.householder`` past it (the JAX package's default leaf at every n),
+unless the caller asks for one.  The kernel returns Q^T (B, n, L); the
+tree keeps it as it is and reads it through a transposed view in the
+backward product.  The inner nodes, (fanin n, n) tiles, use the blocked
 Householder, as in the reference.
 """
 
@@ -49,6 +50,40 @@ LEAF_CHUNK_ELEMS = 1 << 28
 
 _KERNEL_IMPLS = ("pallas", "pallas_sb")
 _PLAIN_IMPLS = ("pallas_interpret", "pallas_sb_interpret")
+# widest n of the JAX package's panel kernel (its tiles T L <= 8192 with
+# T >= 8 and L >= 2 n, tsqr_tpu/core/tsqr.py::_pick_sb_tiles); past it
+# its wrapper takes the blocked Householder
+PANEL_SB_N_MAX = 512
+
+
+def leaf_impl(impl: str | None, n: int) -> str:
+    """The leaf's batched QR at width n: None is the panel kernel
+    ("pallas_sb") for n <= ``panel_kernel.N_MAX`` and the blocked
+    Householder ("jnp") past it.  A panel impl asked for past the port's
+    kernel raises up to ``PANEL_SB_N_MAX``, where the JAX package's
+    kernel still runs (not yet ported), and takes the blocked Householder
+    above, as the JAX package's wrapper does."""
+    if impl is None:
+        return "pallas_sb" if n <= panel_kernel.N_MAX else "jnp"
+    if impl in _KERNEL_IMPLS + _PLAIN_IMPLS and n > panel_kernel.N_MAX:
+        if n <= PANEL_SB_N_MAX:
+            raise ValueError(
+                f"impl={impl!r}: the port's panel kernel takes n <= "
+                f"{panel_kernel.N_MAX}; the JAX package's runs up to "
+                f"n = {PANEL_SB_N_MAX} and is not yet ported for "
+                f"{panel_kernel.N_MAX} < n <= {PANEL_SB_N_MAX} (got n={n}); "
+                "use impl='jnp'")
+        return "jnp"
+    return impl
+
+
+def default_leaf_rows(n: int, impl: str | None = None) -> int:
+    """The leaf height ``tsqr`` takes with ``leaf_rows=None``: the panel
+    kernel's largest tile at n for a panel leaf, else
+    ``DEFAULT_LEAF_ROWS``."""
+    if leaf_impl(impl, n) in _KERNEL_IMPLS + _PLAIN_IMPLS:
+        return panel_kernel.max_leaf_rows(n)
+    return DEFAULT_LEAF_ROWS
 
 
 def _leaf_chunks(bs: int, elems_per_leaf: int) -> int:
@@ -144,12 +179,13 @@ def tsqr(a: Tensor,
       mode: precision policy (see :mod:`tsqr_tpu_torch.modes`).
       leaf_rows: target leaf height; None is the panel kernel's largest
         tile at this n (``panel_kernel.max_leaf_rows``) for the kernel
-        leaf, else ``DEFAULT_LEAF_ROWS``.
+        leaf, else ``DEFAULT_LEAF_ROWS`` (:func:`default_leaf_rows`).
       fanin: tree fan-in (a power of two).
       leaf_qr: optional override of the leaf's batched QR,
         (B, L, n) -> (Q, R).
-      impl: the leaf's batched QR (see :func:`_make_batched_qr`); None is
-        the panel kernel ("pallas_sb").
+      impl: the leaf's batched QR (see :func:`_make_batched_qr` and
+        :func:`leaf_impl`); None is the panel kernel ("pallas_sb") for
+        n <= 128, the blocked Householder ("jnp") past it.
       block: W-Y block width of the blocked Householder (the inner nodes,
         and a "jnp" leaf).
       collect_level_q: also return the per-level Q batches:
@@ -168,10 +204,9 @@ def tsqr(a: Tensor,
         raise ValueError(f"tsqr requires m >= n, got {tuple(a.shape)}")
     a = a.to(torch.float32)
     mm = policy.mm
-    impl = "pallas_sb" if impl is None else impl
+    impl = leaf_impl(impl, n)
     if leaf_rows is None:
-        leaf_rows = (panel_kernel.max_leaf_rows(n) if leaf_qr is None
-                     and impl in _KERNEL_IMPLS + _PLAIN_IMPLS
+        leaf_rows = (default_leaf_rows(n, impl) if leaf_qr is None
                      else DEFAULT_LEAF_ROWS)
     if leaf_qr is None:
         leaf_qr = _make_batched_qr(policy, impl, block)

@@ -91,11 +91,17 @@ def driver_input(kind: str, seed: int, index: int) -> torch.Tensor:
 def launches() -> dict:
     return {"stream_gram": gram_stream.LAUNCHES,
             "stream_gram_reduce": gram_stream.REDUCE_LAUNCHES,
+            "stream_wide_dot": gram_stream.WIDE_LAUNCHES,
+            "stream_wide_gram": gram_stream.WIDE_GRAM_LAUNCHES,
+            "stream_wide_dot_fp32": gram_stream.WIDE_FP32_LAUNCHES,
+            "stream_wide_gram_fp32": gram_stream.WIDE_GRAM_FP32_LAUNCHES,
             "panel_qr": panel_kernel.LAUNCHES}
 
 
 def _zero_launches() -> None:
     gram_stream.LAUNCHES = gram_stream.REDUCE_LAUNCHES = 0
+    gram_stream.WIDE_LAUNCHES = gram_stream.WIDE_GRAM_LAUNCHES = 0
+    gram_stream.WIDE_FP32_LAUNCHES = gram_stream.WIDE_GRAM_FP32_LAUNCHES = 0
     panel_kernel.LAUNCHES = 0
 
 

@@ -25,7 +25,6 @@ from __future__ import annotations
 import torch
 
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
-from tsqr_tpu_torch.ops import panel_kernel
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 H100_BYTES_PER_S = 3.35e12
@@ -46,9 +45,10 @@ def qr_flops(m: int, n: int) -> float:
 
 
 def default_leaf_rows(n: int) -> int:
-    """The tree's default leaf height at width n: the panel kernel's
-    largest tile (``core.tsqr.tsqr`` with ``leaf_rows=None``)."""
-    return panel_kernel.max_leaf_rows(n)
+    """The tree's default leaf height at width n (``core.tsqr.tsqr`` with
+    ``leaf_rows=None``): the panel kernel's largest tile for n <= 128,
+    the blocked Householder's ``DEFAULT_LEAF_ROWS`` past it."""
+    return tsqr_mod.default_leaf_rows(n)
 
 
 def tsqr_flops(m: int, n: int, leaf_rows: int | None = None,
@@ -175,18 +175,52 @@ def xla_hbm_bytes(m: int, n: int, mode: str, method: str) -> int:
     return io * m * n * touches
 
 
+# bf16 parts a value of x is split into for the wide kernels' products
+SPLIT_PARTS = {"fp32": 0, "bf16": 1, "bf16_nocor": 1, "bf16x3_nocor": 2,
+               "bf16x3_cor": 2, "bf16x6_cor": 3}
+
+
+def wide_extra_bytes(m: int, n: int, dot_modes=(),
+                     gram_mode: str | None = None, write_q: bool = False,
+                     out_dtype=torch.float32, alias_q: bool = False) -> int:
+    """Device-memory bytes the wide stream kernels (n > 128,
+    ``csrc/stream_wide.cu``) move beyond one read of A and one write of Q:
+    each product off fp32 writes x's bf16 parts once and reads them once
+    (re-reads from L2 not counted); each product after the first reads
+    its x again (an intermediate, or Q for the Gram); each dot before the
+    last writes a float32 x, and so does the last where it cannot write Q
+    (a store then reads it to Q).  0 for n <= 128."""
+    if n <= 128:
+        return 0
+    x = 4 * m * n
+    products = list(dot_modes) + ([gram_mode] if gram_mode else [])
+    extra = sum(4 * SPLIT_PARTS[md] * m * n for md in products)
+    extra += x * (len(products) - 1)
+    if dot_modes:
+        extra += x * (len(dot_modes) - 1)
+        to_q = (write_q and not (alias_q and len(dot_modes) == 1)
+                and (gram_mode is None or out_dtype == torch.float32))
+        if not to_q:
+            extra += x * (2 if write_q else 1)
+    return extra
+
+
 def stream_bound(m: int, n: int, dot_modes=(), gram_mode: str | None = None,
                  write_q: bool = False, in_dtype=torch.float32,
-                 out_dtype=torch.float32) -> dict:
+                 out_dtype=torch.float32, design: bool = False) -> dict:
     """Bytes, split-product flops and the H100 lower bound of one stream
     pass: A read once, each rinv read once, Q written once, P written
-    once.  Returns {"bytes", "bf16_flops", "fp32_flops", "bound_ms",
-    "bound_by"}."""
+    once.  ``design=True`` adds what the wide kernels move beyond that
+    (:func:`wide_extra_bytes`).  Returns {"bytes", "bf16_flops",
+    "fp32_flops", "bound_ms", "bound_by"}."""
     isz = torch.empty((), dtype=in_dtype).element_size()
     osz = torch.empty((), dtype=out_dtype).element_size()
     nbytes = (m * n * isz + len(dot_modes) * n * n * 4
               + (m * n * osz if write_q else 0)
               + (n * n * 4 if gram_mode is not None else 0))
+    if design:
+        nbytes += wide_extra_bytes(m, n, dot_modes, gram_mode, write_q,
+                                   out_dtype)
     unit = 2.0 * m * n * n
     counts = [(md, DOT_PRODUCTS[md]) for md in dot_modes]
     if gram_mode is not None:

@@ -16,10 +16,17 @@ Times with CUDA events, at (m, 128) float32:
   in turns over three rounds: the decorator's host time on a call with
   nothing to differentiate.
 
+With ``--wide N`` it times the wide range instead (128 < n <= 2048,
+``ops/csrc/stream_wide.cu``) at (m, N): the Gram and the Q pass per
+mode, the ``compact_final`` pass at bf16x6_cor, the library products,
+the bench's ladder at (m, N), and each
+call's device time by kernel from a ``torch.profiler`` trace (the split
+pass, the dots, the Gram, the reduction).
+
 Prints one JSON line with the card's name and power limit:
 
     python -m tsqr_tpu_torch.harness.stream_calls [--m 1048576] [--reps 7]
-        [--label X]
+        [--label X] [--wide N]
 
 The module uses only calls that the package had before the panel
 kernel's redesign, so a copy of it can time an older checkout and the
@@ -148,14 +155,55 @@ def ladder_sweep(a: torch.Tensor, reps: int) -> dict:
     return out
 
 
+def wide_sweep(m: int, n: int, reps: int = 7) -> dict:
+    """The wide range at (m, n): each call kind's ms, the library
+    products', the bench's ladder's, and each kind's kernels' device ms
+    from a trace of one call."""
+    import tempfile
+
+    from tsqr_tpu_torch.harness import bench, profile
+    from tsqr_tpu_torch.ops import gram_stream as gs
+    from tsqr_tpu_torch.utils import timing
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand(m, n, device="cuda", generator=gen) * 2 - 1
+    kinds = {k: c for k, c in calls(a, n).items() if not c.get("alias_q")}
+    out, kernels = {}, {}
+    with tempfile.TemporaryDirectory() as logdir:
+        for label, cfg in kinds.items():
+            out[label] = float(np.median(timing.time_cuda(
+                lambda c=cfg: gs.stream(a, **c), reps=reps, warmup=2)))
+            with profile.trace(logdir) as tr:
+                gs.stream(a, **cfg)
+            kernels[label] = {k["name"].split("(")[0]: round(k["total_ms"], 4)
+                              for k in tr.summary(top=6)["top"]}
+    rinv = kinds["qpass fp32"]["rinvs"][0]
+    out["library a.T@a"] = float(np.median(timing.time_cuda(
+        lambda: a.T @ a, reps=reps, warmup=2)))
+    out["library a@rinv"] = float(np.median(timing.time_cuda(
+        lambda: a @ rinv, reps=reps, warmup=2)))
+    out["ladder tier 1"] = float(np.median(timing.time_cuda(
+        lambda: bench.ladder(a), reps=reps, warmup=2)))
+    out["kernels"] = kernels
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--m", type=int, default=1 << 20)
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--label", default="")
+    ap.add_argument("--wide", type=int, default=0, metavar="N",
+                    help="time the wide range at n = N instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("stream_calls measures on a CUDA device")
+    if args.wide:
+        print(json.dumps({"stream_calls_wide": args.label, "card": card(),
+                          "m": args.m, "n": args.wide,
+                          "ms": wide_sweep(args.m, args.wide, args.reps)}),
+              flush=True)
+        return
     print(json.dumps({"stream_calls": args.label, "card": card(),
                       "m": args.m, "ms": sweep(args.m, reps=args.reps)}),
           flush=True)

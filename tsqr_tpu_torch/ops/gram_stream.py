@@ -3,18 +3,28 @@ optional Q write and an optional compensated half-Gram, in one read
 of A.
 
 Counterpart of ``tsqr_tpu/ops/pallas_gram.py``.  :func:`stream` launches
-the CUDA kernel ``csrc/stream_gram.cu`` for a CUDA tensor and runs the
-plain PyTorch version :func:`stream_reference` for a CPU tensor.  On a
-CUDA tensor it launches the kernel or raises: there is no fallback.
+the CUDA kernels for a CUDA tensor and runs the plain PyTorch version
+:func:`stream_reference` for a CPU tensor.  On a CUDA tensor it launches
+a kernel or raises: there is no fallback.
 
-The kernel's shapes: n <= ``N_MAX`` (128), any m; A float32 or bf16; up
-to three dots; modes fp32, bf16, bf16_nocor, bf16x3_nocor, bf16x3_cor and
-bf16x6_cor.  It reads A in tiles of ``TILE_ROWS`` rows and sums its Gram
-in float32 over chunks of ``CHUNK_ROWS`` rows, adding each chunk into a
-float64 sum, so ``stream`` takes ``chunk == CHUNK_ROWS`` on the card and
-the plain version compensates once per chunk of the same size.  With
-``alias_q`` it writes Q into A's own storage (each CTA reads a tile
-before it writes that tile's rows), on either device.
+Two kernels share the contract, by width:
+
+* n <= ``N_MAX`` (128): ``csrc/stream_gram.cu``, one pass over A.  It
+  reads A in tiles of ``TILE_ROWS`` rows and sums its Gram in float32
+  over chunks of ``CHUNK_ROWS`` rows, adding each chunk into a float64
+  sum.
+* 128 < n <= ``WIDE_N_MAX`` (2048), in every mode: ``csrc/stream_wide.cu``,
+  tiled kernels over row chunks: each dot, then the Gram of the result,
+  which sums in float32 over slabs of ``WIDE_CHUNK_ROWS`` rows.  Which
+  widths a pipeline streams at its mode is ``cholqr._fused_n_max``'s
+  decision (the JAX package's range), not this module's.
+
+Either takes any m; A float32 or bf16; up to three dots; modes fp32,
+bf16, bf16_nocor, bf16x3_nocor, bf16x3_cor and bf16x6_cor.  ``stream``
+takes ``chunk == CHUNK_ROWS`` on the card, and the plain version
+compensates once per :func:`effective_chunk` rows, the kernel's own
+granularity.  With ``alias_q`` it writes Q into A's own storage (no row
+is written before every read of it), on either device.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ Tensor = torch.Tensor
 
 TILE_ROWS = 64          # rows of one tile of the kernel's ring
 CHUNK_ROWS = 4096       # most rows the kernel sums before a compensated add
-N_MAX = 128             # widest n the kernel takes
+N_MAX = 128             # widest n the n <= 128 kernel takes
+WIDE_N_MAX = 2048       # widest n the wide kernels take
+WIDE_CHUNK_ROWS = 1024  # rows the wide Gram sums before a float64 add
 DEFAULT_CHUNK = CHUNK_ROWS
 GRAM_CHUNK = CHUNK_ROWS
 _BLOCK_CHUNKS = 1024    # chunks whose Gram contributions the plain
@@ -43,10 +55,20 @@ BUILD_DEFINES: tuple[str, ...] = ()
 
 # Kernel launches, counted where each kernel is launched.
 LAUNCHES = 0            # stream_gram_kernel
-ALIAS_LAUNCHES = 0      # of those, with Q written over A (alias_q)
+ALIAS_LAUNCHES = 0      # calls with Q written over A (alias_q), either kernel
 REDUCE_LAUNCHES = 0     # stream_gram_reduce_kernel
 # Each launch with dots also launches stream_gram_split_r_kernel first,
 # which splits the factors once; it is counted with LAUNCHES.
+# The wide kernels' launches (a dot's, the Gram's and the store's once a
+# row chunk; the factors' split once a call; x's split once a chunk and a
+# product off fp32).
+WIDE_LAUNCHES = 0          # wide_dot_kernel (the split modes)
+WIDE_GRAM_LAUNCHES = 0     # wide_gram_kernel (the split modes)
+WIDE_FP32_LAUNCHES = 0     # wide_dot_fp32_kernel
+WIDE_GRAM_FP32_LAUNCHES = 0  # wide_gram_fp32_kernel
+WIDE_STORE_LAUNCHES = 0    # wide_store_kernel: Q from a scratch x
+WIDE_SPLIT_LAUNCHES = 0    # wide_split_r_kernel
+WIDE_SPLIT_X_LAUNCHES = 0  # wide_split_x_kernel
 
 M = modes.ComputeMode
 # split parts per mode: (parts, rounded to bf16); the residual order of
@@ -133,8 +155,11 @@ def _gram_half(x: Tensor, md: modes.ComputeMode) -> Tensor:
 def effective_chunk(m: int, n: int, chunk: int = DEFAULT_CHUNK) -> int:
     """Rows summed in float32 before one compensated add of the Gram (the
     error budget of ``cholqr._shift_value_fused`` is ~sqrt(chunk) eps);
-    on the card ``chunk`` is ``CHUNK_ROWS``."""
-    del n
+    on the card ``chunk`` is ``CHUNK_ROWS``, and past n = ``N_MAX`` the
+    wide Gram's slab, ``WIDE_CHUNK_ROWS`` (the JAX package's own chunk at
+    n = 1024)."""
+    if n > N_MAX:
+        chunk = min(chunk, WIDE_CHUNK_ROWS)
     return max(1, min(chunk, m))
 
 
@@ -273,6 +298,38 @@ def reduce_partials(partials: Tensor) -> Tensor:
     return out
 
 
+def _launch_args(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
+                 residual, alias_q):
+    """What a launch of either kernel takes, checked: A contiguous, the
+    float32 factors, their kernel codes, residual flags and pointers (three
+    slots), Q (A itself with ``alias_q``) and the Gram's code (-1: none)."""
+    m, n = a.shape
+    if len(rinvs) > 3:
+        raise ValueError("the stream kernels chain at most 3 dots")
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the stream kernels read float32 or bf16 A, got "
+                         f"{a.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the stream kernels write float32 or bf16 Q, got "
+                         f"{out_dtype}")
+    a = a.contiguous()
+    rs = [r.to(device=a.device, dtype=torch.float32).contiguous()
+          for r in rinvs]
+    if any(r.shape != (n, n) for r in rs):
+        raise ValueError("every rinv must be (n, n)")
+    pad = [0] * (3 - len(rs))
+    codes = [_kernel_code(md) for md in dot_ms] + pad
+    res = [int(b) for b in residual] + pad
+    ptrs = [r.data_ptr() for r in rs] + [None] * len(pad)
+    if alias_q:
+        q = a
+    else:
+        q = torch.empty(m, n, dtype=out_dtype, device=a.device) if write_q \
+            else None
+    gram_code = _kernel_code(gram_m) if gram_m is not None else -1
+    return a, rs, codes, res, ptrs, q, gram_code
+
+
 def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
                    residual, alias_q=False):
     """Launch the CUDA kernel (and, for a Gram, its reduction stage);
@@ -281,28 +338,8 @@ def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
     m, n = a.shape
     if n > N_MAX:
         raise ValueError(f"the stream kernel takes n <= {N_MAX}, got {n}")
-    if len(rinvs) > 3:
-        raise ValueError("the stream kernel chains at most 3 dots")
-    if a.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the stream kernel reads float32 or bf16 A, got "
-                         f"{a.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the stream kernel writes float32 or bf16 Q, got "
-                         f"{out_dtype}")
-    a = a.contiguous()
-    rs = [r.to(device=a.device, dtype=torch.float32).contiguous()
-          for r in rinvs]
-    if any(r.shape != (n, n) for r in rs):
-        raise ValueError("every rinv must be (n, n)")
-    codes = [_kernel_code(md) for md in dot_ms] + [0] * (3 - len(rs))
-    res = [int(b) for b in residual] + [0] * (3 - len(rs))
-    ptrs = [r.data_ptr() for r in rs] + [None] * (3 - len(rs))
-    if alias_q:
-        q = a
-    else:
-        q = torch.empty(m, n, dtype=out_dtype, device=a.device) if write_q \
-            else None
-    gram_code = _kernel_code(gram_m) if gram_m is not None else -1
+    a, rs, codes, res, ptrs, q, gram_code = _launch_args(
+        a, rinvs, dot_ms, write_q, gram_m, out_dtype, residual, alias_q)
     grid = grid_size(m, n, codes[:len(rs)], gram_code)
     partials = (torch.empty(grid // 2, n, n, dtype=torch.float64,
                             device=a.device)
@@ -320,6 +357,91 @@ def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
         m, n, grid, stream)
     _raise_on(err, "stream_gram_kernel launch")
     LAUNCHES += 1
+    ALIAS_LAUNCHES += int(alias_q)
+    outs = [q] if write_q else []
+    if gram_m is not None:
+        outs.append(reduce_partials(partials))
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+def _wide_lib():
+    from tsqr_tpu_torch.ops import _build
+
+    lib = _build.load("stream_wide")
+    if not getattr(lib, "_typed", False):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.stream_wide_launch.argtypes = (
+            [vp, ci, vp, vp, vp, ci] + [ci] * 6
+            + [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, cll, ci, vp,
+               ctypes.POINTER(ci)])
+        lib.stream_wide_slabs.argtypes = [cll, ci]
+        lib.stream_wide_chunk_rows.argtypes = [ci]
+        lib.stream_wide_image_bytes.argtypes = [ci]
+        lib.stream_wide_needs_scratch.argtypes = [ci] * 5
+        lib.stream_wide_kpad.argtypes = [ci]
+        for f in (lib.stream_wide_launch, lib.stream_wide_slabs,
+                  lib.stream_wide_needs_scratch, lib.stream_wide_n_max,
+                  lib.stream_wide_slab_rows, lib.stream_wide_kpad):
+            f.restype = ci
+        lib.stream_wide_chunk_rows.restype = cll
+        lib.stream_wide_image_bytes.restype = cll
+        if (lib.stream_wide_n_max() != WIDE_N_MAX
+                or lib.stream_wide_slab_rows() != WIDE_CHUNK_ROWS):
+            raise RuntimeError("stream_wide.cu and gram_stream.py disagree "
+                               "on WIDE_N_MAX / WIDE_CHUNK_ROWS")
+        lib._typed = True
+    return lib
+
+
+def _stream_wide(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
+                 residual, alias_q=False):
+    """Launch the wide kernels (``csrc/stream_wide.cu``) over A's row
+    chunks, then, for a Gram, the reduction stage over its partials."""
+    global WIDE_LAUNCHES, WIDE_GRAM_LAUNCHES, WIDE_STORE_LAUNCHES
+    global WIDE_SPLIT_LAUNCHES, WIDE_SPLIT_X_LAUNCHES, ALIAS_LAUNCHES
+    global WIDE_FP32_LAUNCHES, WIDE_GRAM_FP32_LAUNCHES
+    m, n = a.shape
+    if not N_MAX < n <= WIDE_N_MAX:
+        raise ValueError(f"the wide stream kernels take {N_MAX} < n <= "
+                         f"{WIDE_N_MAX}, got {n}")
+    a, rs, codes, res, ptrs, q, gram_code = _launch_args(
+        a, rinvs, dot_ms, write_q, gram_m, out_dtype, residual, alias_q)
+    lib = _wide_lib()
+    q_bf16 = int(out_dtype == torch.bfloat16)
+    dev = a.device
+    partials = (torch.empty(lib.stream_wide_slabs(m, n), n, n,
+                            dtype=torch.float64, device=dev)
+                if gram_m is not None else None)
+    image = (torch.empty(len(rs) * lib.stream_wide_image_bytes(n),
+                         dtype=torch.uint8, device=dev) if rs else None)
+    rows = min(m, lib.stream_wide_chunk_rows(n))
+    scratch = [None, None]
+    if lib.stream_wide_needs_scratch(len(rs), int(write_q), int(alias_q),
+                                     gram_code, q_bf16):
+        scratch = list(torch.empty(2, rows, n, dtype=torch.float32,
+                                   device=dev))
+    # x's bf16 parts, a chunk's rows (the split products' operand)
+    parts = (torch.empty(3, rows, lib.stream_wide_kpad(n),
+                         dtype=torch.bfloat16, device=dev)
+             if max(codes[:len(rs)] + [gram_code]) > 0 else None)
+    launches = (ctypes.c_int * 7)()
+    err = lib.stream_wide_launch(
+        a.data_ptr(), int(a.dtype == torch.bfloat16), *ptrs, len(rs),
+        *codes, *res, image.data_ptr() if image is not None else None,
+        q.data_ptr() if write_q else None, q_bf16, int(write_q),
+        int(alias_q), gram_code,
+        partials.data_ptr() if partials is not None else None,
+        *(s.data_ptr() if s is not None else None for s in scratch),
+        parts.data_ptr() if parts is not None else None,
+        m, n, torch.cuda.current_stream(dev).cuda_stream, launches)
+    WIDE_LAUNCHES += launches[0]
+    WIDE_GRAM_LAUNCHES += launches[1]
+    WIDE_STORE_LAUNCHES += launches[2]
+    WIDE_SPLIT_LAUNCHES += launches[3]
+    WIDE_SPLIT_X_LAUNCHES += launches[4]
+    WIDE_FP32_LAUNCHES += launches[5]
+    WIDE_GRAM_FP32_LAUNCHES += launches[6]
+    _raise_on(err, "stream_wide launch")
     ALIAS_LAUNCHES += int(alias_q)
     outs = [q] if write_q else []
     if gram_m is not None:
@@ -350,10 +472,15 @@ def stream(a: Tensor,
     ``out_dtype == a.dtype`` and a contiguous A.  The result is bit for
     bit that of the call without it.
 
-    A CUDA tensor goes through the CUDA kernel, which raises for what it
-    does not take; a CPU tensor through :func:`stream_reference`."""
+    n <= ``N_MAX`` runs the one-pass kernel, 128 < n <= ``WIDE_N_MAX``
+    the wide kernels, in every mode; a wider n raises on either device.
+    A CUDA tensor goes through the CUDA kernels, which raise for what they
+    do not take; a CPU tensor through :func:`stream_reference`."""
     residual = _check(a, rinvs, dot_modes, write_q, gram_mode, residual,
                       out_dtype, alias_q)
+    if a.shape[1] > WIDE_N_MAX:
+        raise ValueError(f"the stream kernels take n <= {WIDE_N_MAX}, got "
+                         f"n={a.shape[1]}")
     if a.device.type == "cpu":
         return stream_reference(a, rinvs, dot_modes, write_q, gram_mode,
                                 chunk, out_dtype, residual, alias_q)
@@ -364,8 +491,9 @@ def stream(a: Tensor,
                          f"rows; got chunk={chunk}")
     dot_ms = [_mode(d) for d in dot_modes]
     gram_m = _mode(gram_mode) if gram_mode is not None else None
-    return _stream_kernel(a, rinvs, dot_ms, write_q, gram_m,
-                         out_dtype or a.dtype, residual, alias_q)
+    launch = _stream_kernel if a.shape[1] <= N_MAX else _stream_wide
+    return launch(a, rinvs, dot_ms, write_q, gram_m, out_dtype or a.dtype,
+                  residual, alias_q)
 
 
 def gram_stream(a: Tensor, mode: str = "fp32",
