@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tsqr_tpu_torch on one NVIDIA GPU: build the stream (n <=
-128 and wide), panel and bandwidth-probe kernels, hold each against its
-plain PyTorch
+128 and wide), panel (n <= 128 and wide) and bandwidth-probe kernels,
+hold each against its plain PyTorch
 version, drive the predictive ladder at the bench shape (2^20, 128)
 through tier 1 and, with a zeroed column, through tier 4 (the
 Householder tree on the panel kernel), run it at tiers 2 and 3, run
@@ -10,7 +10,12 @@ range (the ``wide`` phase: the wide kernels of ``stream_wide.cu``
 against their plain versions at n = 256, 1024 and 2048, the bench's
 ladder at (2^19, 512) through tier 1 on them alone, the in-place QR at
 (2^19, 1024), the compact CholeskyQR3 at (2^18, 1024), ``tsqr`` at
-(2^18, 256) and ``rsvd`` at rank 200), run the measurement path (the
+(2^18, 256) and ``rsvd`` at rank 200), run the panel kernel's wide
+range (the ``panel_wide`` phase: the wide panel kernel of
+``panel_wide.cu`` against its plain version in every mode at n = 136,
+256, 384 and 512, ``tsqr`` on it at (2^20, 256) and (2^19, 512) beside
+the blocked-Householder leaf, the leaf heights at (2^20, 256), ``cca``
+256 wide and ``qr`` with 256-wide panels), run the measurement path (the
 bandwidth sweep of ``harness.bw`` and the ``harness.mfu`` sweep), the
 in-place QR at (2^22, 128), every cholqr2_fused variant and ``qr_auto``,
 take gradients through the entry points on the card (the ``grad`` phase:
@@ -68,6 +73,7 @@ from tsqr_tpu_torch import modes  # noqa: E402
 from tsqr_tpu_torch.utils import experimental  # noqa: E402
 from tsqr_tpu_torch.core import tsqr as tsqr_mod  # noqa: E402
 from tsqr_tpu_torch.ops import _build, bw_probe, gram_stream as gs  # noqa: E402
+from tsqr_tpu_torch.ops import householder  # noqa: E402
 from tsqr_tpu_torch.ops import panel_kernel as pk  # noqa: E402
 from tsqr_tpu_torch.utils import latms, timing, validation  # noqa: E402
 from tsqr_tpu_torch.utils import native  # noqa: E402
@@ -84,7 +90,9 @@ SOURCE = "tsqr_tpu_torch/ops/csrc/stream_gram.cu"
 PANEL_SOURCE = "tsqr_tpu_torch/ops/csrc/panel_qr.cu"
 BW_SOURCE = "tsqr_tpu_torch/ops/csrc/bw_probe.cu"
 WIDE_SOURCE = "tsqr_tpu_torch/ops/csrc/stream_wide.cu"
-KERNELS = ("stream_gram", "stream_wide", "panel_qr", "bw_probe")
+WIDE_PANEL_SOURCE = "tsqr_tpu_torch/ops/csrc/panel_wide.cu"
+KERNELS = ("stream_gram", "stream_wide", "panel_qr", "panel_wide",
+           "bw_probe")
 M_BW = 1 << 22       # the bandwidth sweep's and the in-place runs' rows
 INPLACE_PEAK_MAX = 64 << 20  # bytes a call may allocate above its input
 INPLACE_CASES = (("cholqr1_fused", "safe"), ("cholqr2_fused", "compact"),
@@ -132,6 +140,23 @@ RSVD_TOL = 1e-4      # a rank-200 input recovered at rank 200 (+8)
 # (core/auto.py _TOL)
 PANEL_TOL = {"fp32": 1e-5, "bf16x6_cor": 1e-5, "bf16x3_cor": 1e-4}
 PANEL_CASES = ((264, 256, 128), (64, 256, 64), (33, 200, 50))
+# the panel_wide phase: the wide panel kernel (128 < n <= 512) against its
+# plain version in every mode at these widths, L in {n, 2n, L_WIDE_MAX},
+# with a zero column and zero rows, to tests/test_torch_gpu.py's
+# PANEL_MODES (the one-part bf16 modes at their own grade: a changed
+# float32 sum can round a later split differently), both factors in
+# canonical signs (``canonical``); then tsqr on the
+# wide leaf at full width (1 GiB of A each), cca 256 wide and BlockQR
+# with 256-wide panels
+WIDE_PANEL_NS = (136, 256, 384, 512)
+WIDE_PANEL_TOL = {"fp32": 1e-5, "bf16x6_cor": 1e-5, "bf16x3_cor": 1e-4,
+                  "bf16x3_nocor": 1e-4, "bf16": 5e-2, "bf16_nocor": 5e-2}
+WIDE_PANEL_PATHS = ((1 << 20, 256), (1 << 19, 512))
+# leaf heights at (2^20, 256) beside the default's (fanin 8: L = 256 for
+# every target from 2n to L_WIDE_MAX): (leaf_rows, fanin)
+WIDE_PANEL_HEIGHTS = ((1024, 4), (512, 2))
+M_CCA_WIDE, P_CCA_WIDE, Q_CCA_WIDE = 1 << 18, 256, 64
+M_QR_PANEL, N_QR_PANEL, QR_PANEL_WIDTH = 1 << 18, 512, 256
 # the grad phase: (m, n), and the cases (entry, mode).  The card's and the
 # CPU's factors agree to float32 grade; the rule carries their difference
 # through R^{-1}, kappa(A) ~ 5 for these uniform inputs
@@ -203,6 +228,7 @@ def reset_counts() -> None:
     gs.WIDE_SPLIT_LAUNCHES = 0
     gs.WIDE_SPLIT_X_LAUNCHES = 0
     pk.LAUNCHES = 0
+    pk.WIDE_LAUNCHES = 0
     bw_probe.READ_LAUNCHES = 0
     bw_probe.READ_SUM_LAUNCHES = 0
     bw_probe.COPY_LAUNCHES = 0
@@ -220,6 +246,7 @@ def read_counts() -> dict:
             "stream_wide_split_r": gs.WIDE_SPLIT_LAUNCHES,
             "stream_wide_split_x": gs.WIDE_SPLIT_X_LAUNCHES,
             "panel_qr": pk.LAUNCHES,
+            "panel_qr_wide": pk.WIDE_LAUNCHES,
             "read_reduce": bw_probe.READ_LAUNCHES,
             "read_reduce_sum": bw_probe.READ_SUM_LAUNCHES,
             "copy": bw_probe.COPY_LAUNCHES}
@@ -410,13 +437,25 @@ def tile_metrics(a, qt, r) -> tuple[float, float]:
     return float(orth.max()) / math.sqrt(n), float(res.max())
 
 
-def compare_panel(a, mode, what) -> float:
+def canonical(qt, r):
+    """Q^T and R with diag(R) >= 0: each row of R and of Q^T times the
+    sign of its diagonal entry (+1 for a zero)."""
+    s = torch.where(torch.diagonal(r, dim1=-2, dim2=-1) < 0, -1.0, 1.0)
+    return qt * s[..., :, None], r * s[..., :, None]
+
+
+def compare_panel(a, mode, what, tols=PANEL_TOL, signs=False) -> float:
     """Panel kernel against its plain version on the same tiles; returns
-    the max abs error over Q^T and R."""
+    the max abs error over Q^T and R.  With ``signs``, both in canonical
+    form (``canonical``): a pivot within the mode's rounding of 0 takes
+    either sign in two summation orders, each the convention's, and
+    flips its column of Q and row of R."""
     qt, r = pk.panel_qr_batched(a, mode)
     qt0, r0 = pk.panel_qr_reference(a, mode)
     torch.cuda.synchronize()
-    tol = PANEL_TOL[mode]
+    if signs:
+        (qt, r), (qt0, r0) = canonical(qt, r), canonical(qt0, r0)
+    tol = tols[mode]
     for name, x, y in (("R", r, r0), ("Q^T", qt, qt0)):
         e = rel(x, y)
         if not e <= tol:
@@ -450,6 +489,206 @@ def phase_panel_vs_plain(gen) -> None:
     print(f"panel vs plain: {len(PANEL_CASES) * len(PANEL_TOL)} checks at "
           f"{PANEL_CASES} x {tuple(PANEL_TOL)} within tolerance; zero "
           "column and zero rows ok", flush=True)
+
+
+def wide_panel_checks(gen) -> dict:
+    """The wide panel kernel against its plain version: every mode, n in
+    WIDE_PANEL_NS, L in {n, 2n, L_WIDE_MAX}, three tiles with a zero
+    column (R_jj = 0) and, where L > n, seven zero rows below every pivot
+    (exactly zero Q rows); the max abs error per mode."""
+    errs = {md: 0.0 for md in WIDE_PANEL_TOL}
+    for n in WIDE_PANEL_NS:
+        for L in sorted({n, min(2 * n, pk.L_WIDE_MAX), pk.L_WIDE_MAX}):
+            a = torch.rand(3, L, n, device="cuda", generator=gen) * 2 - 1
+            a[:, :, n // 3] = 0.0
+            z = L - 7 if L - 7 >= n else L
+            a[:, z:, :] = 0.0
+            for mode in WIDE_PANEL_TOL:
+                what = f"panel_wide (3, {L}, {n}) {mode}"
+                launches = pk.WIDE_LAUNCHES
+                errs[mode] = max(errs[mode], compare_panel(
+                    a, mode, what, WIDE_PANEL_TOL, signs=True))
+                qt, r = pk.panel_qr_batched(a, mode)
+                torch.cuda.synchronize()
+                if pk.WIDE_LAUNCHES != launches + 2:
+                    raise AssertionError(f"{what}: the wide kernel did not "
+                                         "launch")
+                if not (bool((qt[:, :, z:] == 0).all())
+                        and bool((r[:, n // 3, n // 3] == 0).all())):
+                    raise AssertionError(f"{what}: zero rows or the zero "
+                                         "column")
+    return errs
+
+
+def inner_levels(bs: int, fanin: int) -> int:
+    """Batched QRs of the tree above its leaves."""
+    levels = 0
+    while bs > 1:
+        bs //= min(fanin, bs)
+        levels += 1
+    return levels
+
+
+def wide_panel_path(m: int, n: int, gen) -> dict:
+    """tsqr at (m, n) f32 MODE on the wide kernel's leaf: held to < 1e-5,
+    its leaf launches counted, every blocked-Householder call an inner
+    node (recorded by shape), timed beside the same call with the
+    blocked-Householder leaf (impl="jnp", the route before the port)."""
+    a = torch.rand(m, n, device="cuda", generator=gen) * 2 - 1
+    fanin = tsqr_mod.DEFAULT_FANIN
+    bs, L, _ = tsqr_mod.plan_tree(m, n, tsqr_mod.default_leaf_rows(n),
+                                  fanin)
+    hh = []
+    plain_hh = householder.blocked_householder_qr
+    householder.blocked_householder_qr = (
+        lambda x, *args, **kw: hh.append(tuple(x.shape))
+        or plain_hh(x, *args, **kw))
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        q, r = tsqr_tpu_torch.tsqr(a, MODE)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        householder.blocked_householder_qr = plain_hh
+    orth = validation.orthogonality_accurate(q)
+    res = validation.residual_accurate(a, q, r)
+    del q, r
+    inner = all(s[1] % n == 0 and s[1] // n >= 2 for s in hh)
+    if not (orth < 1e-5 and res < 1e-5 and counts["panel_qr_wide"] >= 1
+            and not counts["panel_qr"] and inner
+            and len(hh) == inner_levels(bs, fanin)):
+        raise AssertionError(f"tsqr ({m}, {n}) on the wide leaf: orth "
+                             f"{orth:.2e} residual {res:.2e} launches "
+                             f"{counts} Householder calls {hh}")
+    # the gated call warmed the path; the eager leaf's call takes seconds
+    ms = timing.time_cuda(lambda: tsqr_tpu_torch.tsqr(a, MODE), reps=2,
+                          warmup=0)
+    jnp_ms = timing.time_cuda(lambda: tsqr_tpu_torch.tsqr(a, MODE,
+                                                          impl="jnp"),
+                              reps=1, warmup=0)
+    out = {"shape": [m, n], "leaves": [bs, L, n], "fanin": fanin,
+           "orthogonality": orth, "residual": res,
+           "launches": kernel_launches(counts),
+           "householder_calls": [list(s) for s in hh],
+           "ms_median": float(np.median(ms)), "ms": ms,
+           "jnp_leaf_ms_median": float(np.median(jnp_ms)),
+           "jnp_leaf_ms": jnp_ms, "counts": counts}
+    if (m, n) == WIDE_PANEL_PATHS[0]:
+        out["a"] = a
+    return out
+
+
+def wide_panel_entry(path: dict) -> dict:
+    """The wide panel kernel at the (2^20, 256) path's leaves: held to its
+    plain version, timed beside it, batched torch.linalg.qr and the
+    bound."""
+    bs, L, n = path["leaves"]
+    leaves = path["a"].reshape(bs, L, n)
+    err = compare_panel(leaves, MODE, f"panel_wide main-shape ({bs}, {L}, "
+                        f"{n})", WIDE_PANEL_TOL, signs=True)
+    k_ms = float(np.median(timing.time_cuda(
+        lambda: pk.panel_qr_batched(leaves, MODE), reps=5, warmup=1)))
+    mode_ms = {md: float(np.median(timing.time_cuda(
+        lambda md=md: pk.panel_qr_batched(leaves, md), reps=3, warmup=1)))
+        for md in ("fp32", "bf16x3_cor")}
+    p_ms = float(np.median(timing.time_cuda(
+        lambda: pk.panel_qr_reference(leaves, MODE), reps=2, warmup=1)))
+    lib_ms = float(np.median(timing.time_cuda(
+        lambda: torch.linalg.qr(leaves), reps=3, warmup=1)))
+    bound = flops.panel_bound(bs, L, n, MODE)
+    return {"name": "panel_qr_wide", "route": "cuda",
+            "source": WIDE_PANEL_SOURCE,
+            "replaces": "tsqr_tpu/ops/pallas_panel_sb.py:149 (B2 wide, "
+                        "128 < n <= 512; pallas_call at :169); also "
+                        "tsqr_tpu/ops/pallas_panel.py:129 (B3) there",
+            "launches": path["counts"]["panel_qr_wide"],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": lib_ms,
+            "shapes": f"({bs}, {L}, {n}) f32 {MODE} leaves of tsqr at "
+                      f"({WIDE_PANEL_PATHS[0][0]}, {n}); a launch is one "
+                      f"call of {pk.wide_kernel_launches(n)} kernel "
+                      "launches; library_ms is batched torch.linalg.qr",
+            "kernel_launches_a_call": pk.wide_kernel_launches(n),
+            "other_modes_ms": mode_ms}
+
+
+def phase_panel_wide(gen) -> dict:
+    """The wide panel kernel (B2 wide, 128 < n <= 512): its checks
+    against the plain version, then tsqr on it at (2^20, 256) and
+    (2^19, 512), the leaf heights at (2^20, 256), cca 256 wide and qr
+    with 256-wide panels at (2^18, 512), each gated and counted, and the
+    kernel's ``kernels`` entry at the (2^20, 256) leaves."""
+    t0 = time.perf_counter()
+    errs = wide_panel_checks(gen)
+    t_checks = time.perf_counter() - t0
+    paths = [wide_panel_path(m, n, gen) for m, n in WIDE_PANEL_PATHS]
+    main = paths[0]
+    a = main.pop("a")
+    heights = {f"L={main['leaves'][1]} fanin={main['fanin']}": {
+        "leaf_rows": None, "leaves": main["leaves"],
+        "ms_median": main["ms_median"], "ms": main["ms"]}}
+    for leaf_rows, fanin in WIDE_PANEL_HEIGHTS:
+        bs, L, _ = tsqr_mod.plan_tree(a.shape[0], a.shape[1], leaf_rows,
+                                      fanin)
+        ms = timing.time_cuda(lambda: tsqr_tpu_torch.tsqr(
+            a, MODE, leaf_rows=leaf_rows, fanin=fanin), reps=1, warmup=0)
+        heights[f"L={L} fanin={fanin}"] = {
+            "leaf_rows": leaf_rows, "leaves": [bs, L, a.shape[1]],
+            "ms_median": float(np.median(ms)), "ms": ms}
+    main["a"] = a
+    entry = wide_panel_entry(main)
+    del a, main["a"]
+    consumers = {}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    z = torch.randn(M_CCA_WIDE, 2, device="cuda", generator=g)
+    x = torch.cat([z + 0.05 * torch.randn(M_CCA_WIDE, 2, device="cuda",
+                                          generator=g),
+                   torch.randn(M_CCA_WIDE, P_CCA_WIDE - 2, device="cuda",
+                               generator=g)], 1)
+    y = torch.cat([z + 0.05 * torch.randn(M_CCA_WIDE, 2, device="cuda",
+                                          generator=g),
+                   torch.randn(M_CCA_WIDE, Q_CCA_WIDE - 2, device="cuda",
+                               generator=g)], 1)
+    (c, _, _), counts, ms = timed(lambda: tmodels.cca(x, y, mode=MODE),
+                                  reps=2)
+    consumers["cca"] = {"shape": [M_CCA_WIDE, P_CCA_WIDE, Q_CCA_WIDE],
+                        "top2": c[:2].tolist(),
+                        "rest_max": float(c[2:].max()),
+                        "ms": ms, "launches": kernel_launches(counts)}
+    del x, y, z, c
+    a = torch.rand(M_QR_PANEL, N_QR_PANEL, device="cuda",
+                   generator=gen) * 2 - 1
+    (q, r), counts, ms = timed(lambda: tsqr_tpu_torch.qr(
+        a, MODE, panel_width=QR_PANEL_WIDTH), reps=2)
+    consumers["qr"] = {"shape": [M_QR_PANEL, N_QR_PANEL],
+                       "panel_width": QR_PANEL_WIDTH,
+                       "orthogonality":
+                           validation.orthogonality_accurate(q),
+                       "residual": validation.residual_accurate(a, q, r),
+                       "ms": ms, "launches": kernel_launches(counts)}
+    del a, q, r
+    print(json.dumps({"panel_wide": {
+        "checks": {"ns": WIDE_PANEL_NS, "modes": list(WIDE_PANEL_TOL),
+                   "tol": WIDE_PANEL_TOL, "max_abs_err": errs,
+                   "seconds": t_checks},
+        "paths": [{k: v for k, v in p.items() if k != "counts"}
+                  for p in paths],
+        "heights": heights, "consumers": consumers,
+        "kernel": {k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "library_ms", "other_modes_ms")},
+        "seconds": time.perf_counter() - t0}}), flush=True)
+    cca, qr = consumers["cca"], consumers["qr"]
+    if not (min(cca["top2"]) > 0.99 and cca["rest_max"] < 0.2
+            and cca["launches"]["panel_qr_wide"] >= 1):
+        raise AssertionError(f"panel_wide cca: {cca}")
+    if not (qr["orthogonality"] < 1e-5 and qr["residual"] < 1e-5
+            and qr["launches"]["panel_qr_wide"] >= 1):
+        raise AssertionError(f"panel_wide qr: {qr}")
+    return {"paths": {f"panel_wide {m}x{n}": p["counts"]
+                      for (m, n), p in zip(WIDE_PANEL_PATHS, paths)},
+            "entry": entry}
 
 
 def phase_tier4(gen) -> dict:
@@ -1287,7 +1526,8 @@ def kernel_launches(counts: dict) -> dict:
     return {k: counts[k] for k in ("stream_gram", "stream_gram_reduce",
                                    "stream_wide_dot", "stream_wide_gram",
                                    "stream_wide_dot_fp32",
-                                   "stream_wide_gram_fp32", "panel_qr")}
+                                   "stream_wide_gram_fp32", "panel_qr",
+                                   "panel_qr_wide")}
 
 
 def regen_q_orthogonality(mode: str) -> dict:
@@ -1900,12 +2140,14 @@ def probe_entry(name: str, counts: dict, gen) -> dict:
 
 
 def launches_by_path(bench_run: dict, ooc_run: dict, models_run: dict,
-                     dist_run: dict, wide_run: dict) -> dict:
+                     dist_run: dict, wide_run: dict,
+                     panel_wide_run: dict) -> dict:
     """{path: {kernel: launches}} of the bench, wide, ooc, models and
     distributed phases, each path's counts set to 0 just before its first
     call and read just after; the bench's its whole child process, the
     distributed path's a list, one count a rank."""
-    paths = {"bench": bench_run["launches"], "wide": wide_run["counts"]}
+    paths = {"bench": bench_run["launches"], "wide": wide_run["counts"],
+             **panel_wide_run["paths"]}
     paths.update({("models." if k.startswith("lstsq") else "ooc.qr_regen ")
                   + k: v["launches"]
                   for k, v in ooc_run["regen"].items() if "launches" in v})
@@ -1968,7 +2210,8 @@ def wide_entries(wide: dict) -> list:
 
 
 def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
-                       inplace: dict, paths: dict, wide: dict) -> None:
+                       inplace: dict, paths: dict, wide: dict,
+                       panel_wide_entry: dict) -> None:
     """Every kernel of the main paths at the main paths' shapes: its time,
     its plain version's time, the library call's time and the bound; the
     stream and panel kernels' launches on the bench, ooc and models paths
@@ -2076,13 +2319,15 @@ def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
          "timing": "CUDA graph of 20 calls (utils/timing.graph_ms)",
          "single_call_event_ms": r_event_ms},
         panel_entry(tier4),
+        panel_wide_entry,
         probe_entry("read_reduce", bw_run["counts"], gen),
         probe_entry("copy", bw_run["counts"], gen),
     ]
     kernels[3:3] = wide_entries(wide)
-    for entry in kernels[:5]:
-        entry["launches_by_path"] = {p: c[entry["name"]]
-                                     for p, c in paths.items()}
+    for entry in kernels:
+        if all(entry["name"] in c for c in paths.values()):
+            entry["launches_by_path"] = {p: c[entry["name"]]
+                                         for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -2109,6 +2354,7 @@ def main() -> int:
     phase_tiers(args.seed)
     phase_qr_wide(gen)
     wide_run = phase_wide(gen)
+    panel_wide_run = phase_panel_wide(gen)
     bw_run = phase_bw_sweep()
     inplace = phase_inplace(gen)
     phase_cholqr2(main_run["a"])
@@ -2126,7 +2372,8 @@ def main() -> int:
     phase_kernels_line(main_run["a"], main_run["counts"], gen, tier4,
                        bw_run, inplace,
                        launches_by_path(bench_run, ooc_run, models_run,
-                                        dist_run, wide_run), wide_run)
+                                        dist_run, wide_run, panel_wide_run),
+                       wide_run, panel_wide_run["entry"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -401,14 +401,106 @@ def test_panel_kernel_holds_the_tier4_leaf(card):
 
 
 def test_panel_kernel_raises_on_what_it_does_not_take(card):
+    # past the wide kernel's width and height (n = 160 is taken now)
     with pytest.raises(ValueError, match="n <="):
-        panel_kernel.panel_qr_batched(_tiles(card, 2, 512, 160), "fp32")
+        panel_kernel.panel_qr_batched(
+            _tiles(card, 2, 1024, panel_kernel.WIDE_N_MAX + 8), "fp32")
+    with pytest.raises(ValueError, match="L <="):
+        panel_kernel.panel_qr_batched(
+            _tiles(card, 2, panel_kernel.L_WIDE_MAX + 8, 160), "fp32")
     too_tall = panel_kernel.max_leaf_rows(128) + 8
     with pytest.raises(ValueError, match="holds L <="):
         panel_kernel.panel_qr_batched(_tiles(card, 2, too_tall, 128), "fp32")
     with pytest.raises(ValueError, match="in-kernel mode"):
         panel_kernel.panel_qr_batched(_tiles(card, 2, 256, 128),
                                       "bf16x3_cor_emu")
+
+
+WIDE_PANEL_NS = (136, 256, 384, 512)
+
+
+def _canonical(qt, r):
+    """Q^T and R with diag(R) >= 0 (each row of R and of Q^T times its
+    diagonal entry's sign, +1 for a zero).  A pivot within a mode's
+    rounding of 0 takes either sign in two summation orders, each the
+    convention's: at one bf16 part some of the wide tiles' ~n pivots do,
+    and a flipped column of Q alone moves Q by 2 / sqrt(B n)."""
+    s = torch.where(torch.diagonal(r, dim1=-2, dim2=-1) < 0, -1.0, 1.0)
+    return qt * s[..., :, None], r * s[..., :, None]
+
+
+@pytest.mark.parametrize("mode", list(PANEL_MODES))
+@pytest.mark.parametrize("rows", ["n", "2n", "max"])
+@pytest.mark.parametrize("n", WIDE_PANEL_NS)
+def test_wide_panel_kernel_shapes_and_modes(card, n, rows, mode):
+    L = {"n": n, "2n": min(2 * n, panel_kernel.L_WIDE_MAX),
+         "max": panel_kernel.L_WIDE_MAX}[rows]
+    a = _tiles(card, 3, L, n, seed=n + L)
+    launches = panel_kernel.LAUNCHES, panel_kernel.WIDE_LAUNCHES
+    qt, r = panel_kernel.panel_qr_batched(a, mode)
+    assert (panel_kernel.LAUNCHES, panel_kernel.WIDE_LAUNCHES) == (
+        launches[0], launches[1] + 1)
+    qt0, r0 = panel_kernel.panel_qr_reference(a, mode)
+    tol = PANEL_MODES[mode]
+    (cq, cr), (cq0, cr0) = _canonical(qt, r), _canonical(qt0, r0)
+    assert _rel(cr, cr0) <= tol and _rel(cq, cq0) <= tol
+    assert torch.equal(torch.tril(r, -1), torch.zeros_like(r))
+    for t in range(a.shape[0]):
+        q = qt[t].T
+        assert validation.orthogonality_accurate(q) < tol
+        assert validation.residual_accurate(a[t], q, r[t]) < tol
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor", "bf16"])
+@pytest.mark.parametrize("L,n", [(300, 136), (1000, 500)])
+def test_wide_panel_kernel_zero_column_and_zero_rows(card, mode, L, n):
+    # L not a multiple of 16: the kernel's padded rows, cut on the way out
+    a = _tiles(card, 5, L, n, seed=L)
+    a[:, :, n - 9] = 0.0       # a zero column passes as H = I
+    a[:, L - 37:, :] = 0.0     # zero rows give exactly zero Q rows
+    qt, r = panel_kernel.panel_qr_batched(a, mode)
+    assert qt.shape == (5, n, L)
+    assert bool((qt[:, :, L - 37:] == 0).all())
+    assert bool((r[:, n - 9, n - 9] == 0).all())
+    assert bool(torch.isfinite(qt).all() and torch.isfinite(r).all())
+    tol = PANEL_MODES[mode]
+    qt0, r0 = panel_kernel.panel_qr_reference(a, mode)
+    (cq, cr), (cq0, cr0) = _canonical(qt, r), _canonical(qt0, r0)
+    assert _rel(cr, cr0) <= tol and _rel(cq, cq0) <= tol
+    for t in range(a.shape[0]):
+        assert validation.residual_accurate(a[t], qt[t].T, r[t]) < tol
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor"])
+def test_tsqr_on_the_wide_leaf_matches_cpu(card, mode):
+    import tsqr_tpu_torch
+    a = torch.from_numpy(np.random.default_rng(12).uniform(
+        -1, 1, (1 << 16, 256)).astype(np.float32))
+    launches = panel_kernel.WIDE_LAUNCHES
+    q, r = tsqr_tpu_torch.tsqr(a.to(card), mode)
+    assert panel_kernel.WIDE_LAUNCHES == launches + 1  # one leaf call
+    q0, r0 = tsqr_tpu_torch.tsqr(a, mode, device="cpu")
+    # the same tree on the same leaves, the kernel against its plain
+    # version: float32 grade
+    assert _rel(r.cpu(), r0) <= 1e-5 and _rel(q.cpu(), q0) <= 1e-5
+    assert validation.orthogonality_accurate(q) < 1e-5
+    assert validation.residual_accurate(a.to(card), q, r) < 1e-5
+
+
+def test_tsqr_gradient_on_the_wide_leaf_matches_cpu(card):
+    import tsqr_tpu_torch
+    rng = np.random.default_rng(13)
+    m, n = 4096, 256
+    a, w = (torch.from_numpy(rng.uniform(-1, 1, (m, n)).astype(np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(rng.uniform(-1, 1, (n, n)).astype(np.float32))
+    launches = panel_kernel.WIDE_LAUNCHES
+    g_card = _grad(tsqr_tpu_torch.tsqr, a.to(card), w.to(card), v.to(card),
+                   mode="bf16x6_cor")
+    assert panel_kernel.WIDE_LAUNCHES > launches
+    g_cpu = _grad(tsqr_tpu_torch.tsqr, a, w, v, mode="bf16x6_cor",
+                  device="cpu")
+    assert _rel(g_card.cpu(), g_cpu) <= 1e-5
 
 
 def test_ladder_tiers_on_card(card):

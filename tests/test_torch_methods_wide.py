@@ -128,24 +128,25 @@ def test_fastqr_inplace_entry_at_wide_n():
 
 @pytest.mark.parametrize("impl", [None, "pallas", "pallas_sb"])
 def test_tsqr_past_the_panel_kernel_matches_jax(impl):
+    # 128 < n <= 512: every panel impl, and the default, on the wide panel
+    # kernel (its plain version here), held to JAX's Householder tree
     a = np.random.default_rng(4).uniform(-1, 1, (2048, 256)).astype(
         np.float32)
-    if impl is not None:  # 128 < n <= 512: the JAX kernel's gap, named
-        with pytest.raises(ValueError, match="not yet ported"):
-            tsqr_mod.tsqr(torch.from_numpy(a), MODE, impl=impl,
-                          device="cpu")
+    q, r = tsqr_mod.tsqr(torch.from_numpy(a), MODE, impl=impl, device="cpu")
+    # the same tree: R's row signs follow the tree's shape
+    qj, rj = jtsqr.tsqr(jnp.asarray(a), MODE,
+                        leaf_rows=tsqr_mod.default_leaf_rows(256, impl))
+    assert tsqr_mod.leaf_impl(impl, 256) == (impl or "pallas_sb")
+    assert _rel(r, rj) <= TOL and _rel(q, qj) <= TOL
+    assert validation.orthogonality(q) < TOL
+    if impl is not None:  # past n = 512, the blocked Householder, as JAX's
         wide = np.random.default_rng(5).uniform(-1, 1, (1200, 520)).astype(
             np.float32)
         q, r = tsqr_mod.tsqr(torch.from_numpy(wide), "fp32", impl=impl,
                              device="cpu")
         qj, rj = jtsqr.tsqr(jnp.asarray(wide), "fp32", impl="jnp")
+        assert tsqr_mod.leaf_impl(impl, 520) == "jnp"
         assert _rel(r, rj) <= 1e-5 and _rel(q, qj) <= 1e-5
-        return
-    q, r = tsqr_mod.tsqr(torch.from_numpy(a), MODE, device="cpu")
-    qj, rj = jtsqr.tsqr(jnp.asarray(a), MODE)
-    assert tsqr_mod.leaf_impl(None, 256) == "jnp"
-    assert _rel(r, rj) <= TOL and _rel(q, qj) <= TOL
-    assert validation.orthogonality(q) < TOL
 
 
 def test_rsvd_rank_200_matches_jax(monkeypatch):

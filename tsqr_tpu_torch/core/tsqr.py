@@ -7,13 +7,14 @@ up to the root; Q is rebuilt down the tree by batched products at the
 mode.  Zero padding is exact: padded rows lie below every pivot, so they
 never enter a reflector, and their Q rows come out exactly 0.
 
-The leaf is the panel kernel (``ops/csrc/panel_qr.cu``, through
-``ops.panel_kernel``) for n <= 128 and the blocked Householder of
-``ops.householder`` past it (the JAX package's default leaf at every n),
-unless the caller asks for one.  The kernel returns Q^T (B, n, L); the
-tree keeps it as it is and reads it through a transposed view in the
-backward product.  The inner nodes, (fanin n, n) tiles, use the blocked
-Householder, as in the reference.
+The leaf is the panel kernel (through ``ops.panel_kernel``:
+``ops/csrc/panel_qr.cu`` for n <= 128, ``ops/csrc/panel_wide.cu`` up to
+n = 512, the JAX package's panel kernel's edge) and the blocked
+Householder of ``ops.householder`` past it (the JAX package's default
+leaf at every n), unless the caller asks for one.  The kernel returns
+Q^T (B, n, L); the tree keeps it as it is and reads it through a
+transposed view in the backward product.  The inner nodes, (fanin n, n)
+tiles, use the blocked Householder, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ from tsqr_tpu_torch.utils import device as _device
 
 Tensor = torch.Tensor
 
-# the Householder leaf's height; the kernel leaf's is the largest tile
-# its shared memory holds, panel_kernel.max_leaf_rows(n)
+# the Householder leaf's height; the kernel leaf's is
+# panel_kernel.leaf_rows(n): the largest tile panel_qr.cu's shared memory
+# holds for n <= 128, panel_kernel.L_WIDE_MAX past it
 DEFAULT_LEAF_ROWS = 2048
 DEFAULT_FANIN = 8
 DEFAULT_BLOCK = 24
@@ -58,31 +60,23 @@ PANEL_SB_N_MAX = 512
 
 def leaf_impl(impl: str | None, n: int) -> str:
     """The leaf's batched QR at width n: None is the panel kernel
-    ("pallas_sb") for n <= ``panel_kernel.N_MAX`` and the blocked
-    Householder ("jnp") past it.  A panel impl asked for past the port's
-    kernel raises up to ``PANEL_SB_N_MAX``, where the JAX package's
-    kernel still runs (not yet ported), and takes the blocked Householder
-    above, as the JAX package's wrapper does."""
+    ("pallas_sb") for n <= ``PANEL_SB_N_MAX`` and the blocked
+    Householder ("jnp") past it.  A panel impl asked for past
+    ``PANEL_SB_N_MAX`` takes the blocked Householder, as the JAX
+    package's wrapper does."""
     if impl is None:
-        return "pallas_sb" if n <= panel_kernel.N_MAX else "jnp"
-    if impl in _KERNEL_IMPLS + _PLAIN_IMPLS and n > panel_kernel.N_MAX:
-        if n <= PANEL_SB_N_MAX:
-            raise ValueError(
-                f"impl={impl!r}: the port's panel kernel takes n <= "
-                f"{panel_kernel.N_MAX}; the JAX package's runs up to "
-                f"n = {PANEL_SB_N_MAX} and is not yet ported for "
-                f"{panel_kernel.N_MAX} < n <= {PANEL_SB_N_MAX} (got n={n}); "
-                "use impl='jnp'")
+        return "pallas_sb" if n <= PANEL_SB_N_MAX else "jnp"
+    if impl in _KERNEL_IMPLS + _PLAIN_IMPLS and n > PANEL_SB_N_MAX:
         return "jnp"
     return impl
 
 
 def default_leaf_rows(n: int, impl: str | None = None) -> int:
     """The leaf height ``tsqr`` takes with ``leaf_rows=None``: the panel
-    kernel's largest tile at n for a panel leaf, else
-    ``DEFAULT_LEAF_ROWS``."""
+    kernel's leaf at n (``panel_kernel.leaf_rows``) for a panel leaf,
+    else ``DEFAULT_LEAF_ROWS``."""
     if leaf_impl(impl, n) in _KERNEL_IMPLS + _PLAIN_IMPLS:
-        return panel_kernel.max_leaf_rows(n)
+        return panel_kernel.leaf_rows(n)
     return DEFAULT_LEAF_ROWS
 
 
@@ -177,15 +171,15 @@ def tsqr(a: Tensor,
     Args:
       a: (m, n) with m >= n.
       mode: precision policy (see :mod:`tsqr_tpu_torch.modes`).
-      leaf_rows: target leaf height; None is the panel kernel's largest
-        tile at this n (``panel_kernel.max_leaf_rows``) for the kernel
-        leaf, else ``DEFAULT_LEAF_ROWS`` (:func:`default_leaf_rows`).
+      leaf_rows: target leaf height; None is the panel kernel's leaf at
+        this n (``panel_kernel.leaf_rows``) for the kernel leaf, else
+        ``DEFAULT_LEAF_ROWS`` (:func:`default_leaf_rows`).
       fanin: tree fan-in (a power of two).
       leaf_qr: optional override of the leaf's batched QR,
         (B, L, n) -> (Q, R).
       impl: the leaf's batched QR (see :func:`_make_batched_qr` and
         :func:`leaf_impl`); None is the panel kernel ("pallas_sb") for
-        n <= 128, the blocked Householder ("jnp") past it.
+        n <= 512, the blocked Householder ("jnp") past it.
       block: W-Y block width of the blocked Householder (the inner nodes,
         and a "jnp" leaf).
       collect_level_q: also return the per-level Q batches:

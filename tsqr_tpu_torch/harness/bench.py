@@ -76,7 +76,8 @@ def launch_counts() -> dict:
             "stream_wide_gram": gram_stream.WIDE_GRAM_LAUNCHES,
             "stream_wide_dot_fp32": gram_stream.WIDE_FP32_LAUNCHES,
             "stream_wide_gram_fp32": gram_stream.WIDE_GRAM_FP32_LAUNCHES,
-            "panel_qr": panel_kernel.LAUNCHES}
+            "panel_qr": panel_kernel.LAUNCHES,
+            "panel_qr_wide": panel_kernel.WIDE_LAUNCHES}
 
 
 def reported(tflops: float) -> float:

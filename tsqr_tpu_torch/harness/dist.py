@@ -95,14 +95,15 @@ def launches() -> dict:
             "stream_wide_gram": gram_stream.WIDE_GRAM_LAUNCHES,
             "stream_wide_dot_fp32": gram_stream.WIDE_FP32_LAUNCHES,
             "stream_wide_gram_fp32": gram_stream.WIDE_GRAM_FP32_LAUNCHES,
-            "panel_qr": panel_kernel.LAUNCHES}
+            "panel_qr": panel_kernel.LAUNCHES,
+            "panel_qr_wide": panel_kernel.WIDE_LAUNCHES}
 
 
 def _zero_launches() -> None:
     gram_stream.LAUNCHES = gram_stream.REDUCE_LAUNCHES = 0
     gram_stream.WIDE_LAUNCHES = gram_stream.WIDE_GRAM_LAUNCHES = 0
     gram_stream.WIDE_FP32_LAUNCHES = gram_stream.WIDE_GRAM_FP32_LAUNCHES = 0
-    panel_kernel.LAUNCHES = 0
+    panel_kernel.LAUNCHES = panel_kernel.WIDE_LAUNCHES = 0
 
 
 class Count:

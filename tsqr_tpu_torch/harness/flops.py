@@ -46,8 +46,9 @@ def qr_flops(m: int, n: int) -> float:
 
 def default_leaf_rows(n: int) -> int:
     """The tree's default leaf height at width n (``core.tsqr.tsqr`` with
-    ``leaf_rows=None``): the panel kernel's largest tile for n <= 128,
-    the blocked Householder's ``DEFAULT_LEAF_ROWS`` past it."""
+    ``leaf_rows=None``): the panel kernels' leaf
+    (``panel_kernel.leaf_rows``) for n <= 512, the blocked Householder's
+    ``DEFAULT_LEAF_ROWS`` past it."""
     return tsqr_mod.default_leaf_rows(n)
 
 

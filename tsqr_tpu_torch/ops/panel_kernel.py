@@ -3,15 +3,24 @@
 Counterpart of ``tsqr_tpu/ops/pallas_panel_sb.py::panel_qr_pallas_sb``
 and ``tsqr_tpu/ops/pallas_panel.py::panel_qr_pallas``: (B, L, n) float32
 -> (Q^T (B, n, L), R (B, n, n)), Q returned transposed per tile.
-:func:`panel_qr_batched` launches the CUDA kernel ``csrc/panel_qr.cu``
-for a CUDA tensor and runs the plain PyTorch version
-:func:`panel_qr_reference` for a CPU tensor.  On a CUDA tensor it
-launches the kernel or raises: there is no fallback.
+:func:`panel_qr_batched` launches a CUDA kernel for a CUDA tensor and
+runs the plain PyTorch version :func:`panel_qr_reference` for a CPU
+tensor.  On a CUDA tensor it launches the kernel or raises: there is no
+fallback.  Two kernels, by width:
 
-The kernel's shapes: n <= ``N_MAX`` (128), n <= L <= :func:`max_leaf_rows`
-(what one block's shared memory holds, and at most ``L_MAX``: two rows a
-thread in the column chain), W-Y blocks of ``BLOCK`` (16) columns; modes fp32, bf16, bf16_nocor, bf16x3_nocor, bf16x3_cor and
-bf16x6_cor.
+* n <= ``N_MAX`` (128): ``csrc/panel_qr.cu``, the tile resident in one
+  CTA's shared memory; n <= L <= :func:`max_leaf_rows` (what that
+  memory holds, and at most ``L_MAX``: two rows a thread in the column
+  chain).  Launches counted in ``LAUNCHES``.
+* ``N_MAX`` < n <= ``WIDE_N_MAX`` (512, the JAX kernel's edge):
+  ``csrc/panel_wide.cu``, the tile in device memory and one 16-column
+  block at a time on chip; n <= L <= ``L_WIDE_MAX`` (four rows a thread
+  in the column chain).  Calls counted in ``WIDE_LAUNCHES``, each
+  :func:`wide_kernel_launches` kernel launches.
+
+Both run W-Y blocks of ``BLOCK`` (16) columns in the modes fp32, bf16,
+bf16_nocor, bf16x3_nocor, bf16x3_cor and bf16x6_cor.  :func:`leaf_rows`
+is the tree's leaf height on them.
 """
 
 from __future__ import annotations
@@ -26,7 +35,10 @@ from tsqr_tpu_torch.ops import gram_stream
 Tensor = torch.Tensor
 _dot_mode = gram_stream._dot_mode  # a product at a mode, split as B1's
 
-N_MAX = 128            # widest n
+N_MAX = 128            # widest n of panel_qr.cu
+WIDE_N_MAX = 512       # widest n of panel_wide.cu
+L_WIDE_MAX = 1024      # most rows of panel_wide.cu: four a thread
+WIDE_ROW_PAD = 16      # panel_wide.cu pads its work tile's rows to this
 BLOCK = 16             # columns per W-Y block
 _THREADS = 256
 L_MAX = 2 * _THREADS   # most rows: two a thread in the column chain
@@ -37,8 +49,10 @@ _YS = 24               # bf16 a row of a Y part in shared memory
 # ("PANEL_QR_PROFILE",) to compile the phase timers in.
 BUILD_DEFINES: tuple[str, ...] = ()
 
-# Kernel launches, counted where the kernel is launched.
+# Kernel launches, counted where the kernel is launched: panel_qr.cu's,
+# and the calls of panel_wide.cu (each its launch sequence).
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 
 def smem_bytes(L: int, n: int) -> int:
@@ -67,6 +81,27 @@ def max_leaf_rows(n: int) -> int:
     while smem_bytes(L, n) > _SMEM_MAX:
         L -= 8
     return L
+
+
+def leaf_rows(n: int) -> int:
+    """The tree's leaf height on the panel kernels at width n, each
+    kernel's tallest tile (fewer leaves, fewer eager inner nodes):
+    :func:`max_leaf_rows` for n <= ``N_MAX``, ``L_WIDE_MAX`` up to
+    ``WIDE_N_MAX``."""
+    if n <= N_MAX:
+        return max_leaf_rows(n)
+    if n > WIDE_N_MAX:
+        raise ValueError(f"the panel kernels take 1 <= n <= {WIDE_N_MAX}, "
+                         f"got {n}")
+    return L_WIDE_MAX
+
+
+def wide_kernel_launches(n: int) -> int:
+    """Kernel launches of one wide call at width n: the load, a chain and
+    (but the last block) a trailing update a block, R, a Q update a
+    block."""
+    nblk = -(-n // BLOCK)
+    return 2 + 3 * nblk - 1
 
 
 def _check(a: Tensor) -> None:
@@ -165,18 +200,75 @@ def _lib():
     return lib
 
 
+def _wide_lib():
+    from tsqr_tpu_torch.ops import _build
+
+    lib = _build.load("panel_wide")
+    if not getattr(lib, "_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.panel_wide_launch.argtypes = [vp] * 7 + [ci, ci, ci, ci, vp]
+        lib.panel_wide_launch.restype = ci
+        lib.panel_wide_kernel_launches.argtypes = [ci]
+        for f in (lib.panel_wide_n_max, lib.panel_wide_l_max,
+                  lib.panel_wide_block, lib.panel_wide_row_pad,
+                  lib.panel_wide_kernel_launches):
+            f.restype = ci
+        if (lib.panel_wide_n_max() != WIDE_N_MAX
+                or lib.panel_wide_l_max() != L_WIDE_MAX
+                or lib.panel_wide_block() != BLOCK
+                or lib.panel_wide_row_pad() != WIDE_ROW_PAD
+                or any(lib.panel_wide_kernel_launches(n)
+                       != wide_kernel_launches(n) for n in (136, 256, 512))):
+            raise RuntimeError("panel_wide.cu and panel_kernel.py disagree "
+                               "on WIDE_N_MAX / L_WIDE_MAX / BLOCK / the row "
+                               "padding / the launches a call")
+        lib._typed = True
+    return lib
+
+
+def _wide_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
+    """Launch the wide kernel's sequence on a (B, L, n) float32 batch,
+    ``N_MAX`` < n <= ``WIDE_N_MAX``: the work tile, the reflectors'
+    diagonals and the blocks' T are scratch of the call."""
+    global WIDE_LAUNCHES
+    B, L, n = a.shape
+    if L > L_WIDE_MAX:
+        raise ValueError(f"the wide panel kernel takes L <= {L_WIDE_MAX} "
+                         f"rows at n={n}, got L={L}")
+    a = a.contiguous()
+    lp = -(-L // WIDE_ROW_PAD) * WIDE_ROW_PAD
+    nblk = -(-n // BLOCK)
+
+    def empty(*shape):
+        return torch.empty(*shape, dtype=torch.float32, device=a.device)
+    qt, r, x = empty(B, n, L), empty(B, n, n), empty(B, n, lp)
+    qw = qt if lp == L else empty(B, n, lp)
+    vd, tm = empty(B, nblk * BLOCK), empty(B, nblk, BLOCK, BLOCK)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _wide_lib().panel_wide_launch(
+        a.data_ptr(), qt.data_ptr(), r.data_ptr(), x.data_ptr(),
+        qw.data_ptr(), vd.data_ptr(), tm.data_ptr(), B, L, n,
+        gram_stream._kernel_code(md), stream)
+    gram_stream._raise_on(err, "panel_wide launch")
+    WIDE_LAUNCHES += 1
+    return qt, r
+
+
 def _panel_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
     """Launch the CUDA kernel on a (B, L, n) float32 batch."""
     global LAUNCHES
     B, L, n = a.shape
-    if n > N_MAX:
-        raise ValueError(f"the panel kernel takes n <= {N_MAX}, got {n}")
-    if L > max_leaf_rows(n):  # also L <= L_MAX
-        raise ValueError(f"the panel kernel holds L <= {max_leaf_rows(n)} "
-                         f"rows at n={n} in shared memory, got L={L}")
+    if n > WIDE_N_MAX:
+        raise ValueError(f"the panel kernels take n <= {WIDE_N_MAX}, got "
+                         f"{n}")
     if a.dtype != torch.float32:
         raise ValueError(f"the panel kernel reads float32 tiles, got "
                          f"{a.dtype}")
+    if n > N_MAX:
+        return _wide_kernel(a, md)
+    if L > max_leaf_rows(n):  # also L <= L_MAX
+        raise ValueError(f"the panel kernel holds L <= {max_leaf_rows(n)} "
+                         f"rows at n={n} in shared memory, got L={L}")
     a = a.contiguous()
     qt = torch.empty(B, n, L, dtype=torch.float32, device=a.device)
     r = torch.empty(B, n, n, dtype=torch.float32, device=a.device)
@@ -194,8 +286,9 @@ def panel_qr_batched(a: Tensor, mode="fp32") -> tuple[Tensor, Tensor]:
     exact zeros below, diag(R)_j = -sign(x_j) ||x|| (sign(0) = +1), in
     W-Y blocks of ``BLOCK`` columns.
 
-    A CUDA tensor goes through the CUDA kernel, which raises for the
-    shapes it does not take; a CPU tensor through
+    A CUDA tensor goes through a CUDA kernel (``panel_qr.cu`` for
+    n <= ``N_MAX``, ``panel_wide.cu`` up to ``WIDE_N_MAX``), which raises
+    for the shapes it does not take; a CPU tensor through
     :func:`panel_qr_reference`."""
     _check(a)
     md = gram_stream._mode(mode)
