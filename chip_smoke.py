@@ -48,6 +48,7 @@ failure exits non-zero before the last line is printed.
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib
 import json
 import math
@@ -76,7 +77,7 @@ from tsqr_tpu_torch.ops import _build, bw_probe, gram_stream as gs  # noqa: E402
 from tsqr_tpu_torch.ops import householder  # noqa: E402
 from tsqr_tpu_torch.ops import panel_kernel as pk  # noqa: E402
 from tsqr_tpu_torch.utils import latms, timing, validation  # noqa: E402
-from tsqr_tpu_torch.utils import native  # noqa: E402
+from tsqr_tpu_torch.utils import native, trace  # noqa: E402
 from tsqr_tpu_torch import models as tmodels  # noqa: E402
 from tsqr_tpu_torch.harness import dist as dist_h  # noqa: E402
 from tsqr_tpu_torch.parallel import launch  # noqa: E402
@@ -216,40 +217,18 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+_COUNTED = collections.Counter()   # the launch counters at reset_counts
+
+
 def reset_counts() -> None:
-    gs.LAUNCHES = 0
-    gs.ALIAS_LAUNCHES = 0
-    gs.REDUCE_LAUNCHES = 0
-    gs.WIDE_LAUNCHES = 0
-    gs.WIDE_GRAM_LAUNCHES = 0
-    gs.WIDE_FP32_LAUNCHES = 0
-    gs.WIDE_GRAM_FP32_LAUNCHES = 0
-    gs.WIDE_STORE_LAUNCHES = 0
-    gs.WIDE_SPLIT_LAUNCHES = 0
-    gs.WIDE_SPLIT_X_LAUNCHES = 0
-    pk.LAUNCHES = 0
-    pk.WIDE_LAUNCHES = 0
-    bw_probe.READ_LAUNCHES = 0
-    bw_probe.READ_SUM_LAUNCHES = 0
-    bw_probe.COPY_LAUNCHES = 0
+    global _COUNTED
+    _COUNTED = trace.counts("launches.")
 
 
-def read_counts() -> dict:
-    return {"stream_gram": gs.LAUNCHES,
-            "stream_gram_alias_q": gs.ALIAS_LAUNCHES,
-            "stream_gram_reduce": gs.REDUCE_LAUNCHES,
-            "stream_wide_dot": gs.WIDE_LAUNCHES,
-            "stream_wide_gram": gs.WIDE_GRAM_LAUNCHES,
-            "stream_wide_dot_fp32": gs.WIDE_FP32_LAUNCHES,
-            "stream_wide_gram_fp32": gs.WIDE_GRAM_FP32_LAUNCHES,
-            "stream_wide_store": gs.WIDE_STORE_LAUNCHES,
-            "stream_wide_split_r": gs.WIDE_SPLIT_LAUNCHES,
-            "stream_wide_split_x": gs.WIDE_SPLIT_X_LAUNCHES,
-            "panel_qr": pk.LAUNCHES,
-            "panel_qr_wide": pk.WIDE_LAUNCHES,
-            "read_reduce": bw_probe.READ_LAUNCHES,
-            "read_reduce_sum": bw_probe.READ_SUM_LAUNCHES,
-            "copy": bw_probe.COPY_LAUNCHES}
+def read_counts() -> collections.Counter:
+    """{kernel: launches} since :func:`reset_counts` (0 for a kernel not
+    launched)."""
+    return trace.counts("launches.") - _COUNTED
 
 
 def phase_card() -> None:
@@ -505,12 +484,13 @@ def wide_panel_checks(gen) -> dict:
             a[:, z:, :] = 0.0
             for mode in WIDE_PANEL_TOL:
                 what = f"panel_wide (3, {L}, {n}) {mode}"
-                launches = pk.WIDE_LAUNCHES
+                launches = trace.counts("launches.")["panel_qr_wide"]
                 errs[mode] = max(errs[mode], compare_panel(
                     a, mode, what, WIDE_PANEL_TOL, signs=True))
                 qt, r = pk.panel_qr_batched(a, mode)
                 torch.cuda.synchronize()
-                if pk.WIDE_LAUNCHES != launches + 2:
+                if (trace.counts("launches.")["panel_qr_wide"]
+                        != launches + 2):
                     raise AssertionError(f"{what}: the wide kernel did not "
                                          "launch")
                 if not (bool((qt[:, :, z:] == 0).all())
@@ -1025,7 +1005,7 @@ def phase_tiers(seed: int) -> None:
         reset_counts()
         q, r, info = tsqr_tpu_torch.qr_auto_fused(a, MODE, return_info=True)
         torch.cuda.synchronize()
-        launches = gs.LAUNCHES
+        launches = read_counts()["stream_gram"]
         orth = validation.orthogonality_accurate(q)
         res = validation.residual_accurate(a, q, r)
         ms = float(np.median(timing.time_cuda(
@@ -1152,7 +1132,7 @@ def phase_cholqr2(a) -> None:
         reset_counts()
         q, r = tsqr_tpu_torch.fastqr(a, MODE, "cholqr2_fused", variant)
         torch.cuda.synchronize()
-        launches = gs.LAUNCHES
+        launches = read_counts()["stream_gram"]
         orth = validation.orthogonality_accurate(q)
         res = validation.residual_accurate(a, q, r)
         del q, r
@@ -2012,7 +1992,7 @@ def phase_distributed(seed: int, ooc_run: dict, models_run: dict) -> dict:
             failures.append(f"nccl {name}")
     staged = sum(row["wire"]["host_staged"] for row in drivers.values())
     launches = {k: [rk["launches"][k] for rk in ranks]
-                for k in ranks[0]["launches"]}
+                for k in set().union(*(rk["launches"] for rk in ranks))}
     line = {"distributed": {
         "backend": backend, "world": DIST_WORLD,
         "card": torch.cuda.get_device_name(0),

@@ -270,8 +270,8 @@ def card_cases(rank: int, world: int, a) -> dict:
     """The tree and Gram drivers on the card, each rank's rows of ``a``:
     R, the global metrics (``dryrun.metrics``), the panel kernel's
     launches of the tree drivers and the collectives."""
-    from tsqr_tpu_torch.ops import panel_kernel
     from tsqr_tpu_torch.parallel import dryrun
+    from tsqr_tpu_torch.utils import trace
 
     mesh = mesh_mod.make_mesh()
     al = _shard(a, mesh).cuda()
@@ -282,10 +282,11 @@ def card_cases(rank: int, world: int, a) -> dict:
             "dqr_auto": lambda: dtsqr.dqr_auto(al, mesh, "bf16x6_cor")}
     out = {}
     for name, fn in runs.items():
-        launches = panel_kernel.LAUNCHES
+        launches = trace.counts("launches.")["panel_qr"]
         with comm.counting() as wire:
             q, r = fn()
         out[name] = {"r": _np(r), "metrics": dryrun.metrics(al, q, r, mesh),
-                     "panel_launches": panel_kernel.LAUNCHES - launches,
+                     "panel_launches":
+                         trace.counts("launches.")["panel_qr"] - launches,
                      "wire": wire.as_dict()}
     return out

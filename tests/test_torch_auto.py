@@ -11,8 +11,7 @@ import torch
 import tsqr_tpu_torch
 from tsqr_tpu.core import auto as jauto
 from tsqr_tpu_torch.core import auto
-from tsqr_tpu_torch.ops import panel_kernel
-from tsqr_tpu_torch.utils import latms, validation
+from tsqr_tpu_torch.utils import latms, trace, validation
 
 torch.set_num_threads(2)
 
@@ -63,14 +62,14 @@ def test_rank_deficient_input_takes_tier4(mode):
     # forced-tier-4 input): both ladders end on the Householder tree
     a = _matrix(1)
     a[:, 33] = 0.0
-    launches = panel_kernel.LAUNCHES
+    launches = trace.counts("launches.")
     q, r, info = auto.qr_auto_fused(torch.from_numpy(a), mode,
                                     return_info=True, device="cpu")
     qj, rj, infoj = jauto.qr_auto_fused(jnp.asarray(a), mode,
                                         return_info=True)
     assert info["tier"] == 4
     assert int(np.asarray(infoj["tier"]).ravel()[0]) == 4
-    assert panel_kernel.LAUNCHES == launches  # the plain leaf on the CPU
+    assert trace.counts("launches.") == launches  # the plain leaf on the CPU
     tol = auto._TOL[auto.M(mode)]
     qn, rn = q.numpy(), r.numpy()
     assert validation.orthogonality(qn) < tol

@@ -16,7 +16,7 @@ import torch
 
 from tsqr_tpu_torch.core import auto
 from tsqr_tpu_torch.ops import bw_probe, gram_stream, panel_kernel
-from tsqr_tpu_torch.utils import latms, validation
+from tsqr_tpu_torch.utils import latms, trace, validation
 
 pytestmark = pytest.mark.gpu
 
@@ -52,9 +52,9 @@ def test_kernel_matches_plain_version(card, mode, n):
     a, rinv, delta = _inputs(card, 1001, n)
     dots = ((rinv, delta), (mode, "bf16x3_cor"))
     kw = dict(residual=(False, True), write_q=True, gram_mode=mode)
-    launches = gram_stream.LAUNCHES
+    launches = trace.counts("launches.")["stream_gram"]
     q, p = gram_stream.stream(a, *dots, **kw)
-    assert gram_stream.LAUNCHES == launches + 1
+    assert trace.counts("launches.")["stream_gram"] == launches + 1
     q0, p0 = gram_stream.stream_reference(a, *dots, **kw)
     tol = 1e-5 if mode == "bf16x3_cor" else 1e-6
     assert _rel(q, q0) <= tol
@@ -285,11 +285,11 @@ def test_wide_launch_counters(card):
     assert chunks >= 2
 
     def counts():
-        return (gram_stream.WIDE_LAUNCHES, gram_stream.WIDE_GRAM_LAUNCHES,
-                gram_stream.WIDE_FP32_LAUNCHES,
-                gram_stream.WIDE_GRAM_FP32_LAUNCHES,
-                gram_stream.REDUCE_LAUNCHES, gram_stream.LAUNCHES,
-                gram_stream.WIDE_SPLIT_LAUNCHES)
+        c = trace.counts("launches.")
+        return tuple(c[k] for k in (
+            "stream_wide_dot", "stream_wide_gram", "stream_wide_dot_fp32",
+            "stream_wide_gram_fp32", "stream_gram_reduce", "stream_gram",
+            "stream_wide_split_r"))
 
     before = counts()
     gram_stream.stream(a, (rinv, delta), ("bf16x6_cor", "bf16x3_cor"),
@@ -314,12 +314,11 @@ def test_wide_kernels_raise_rather_than_fall_back(card):
         gram_stream.stream(a, (rinv,) * 4, ("fp32",) * 4, write_q=True)
     with pytest.raises(ValueError, match="float32 or bf16"):
         gram_stream.stream(a.double(), gram_mode="fp32")
-    launches = gram_stream.WIDE_LAUNCHES, gram_stream.WIDE_GRAM_LAUNCHES
+    launches = trace.counts("launches.")
     with pytest.raises(ValueError, match="n <="):
         gram_stream.stream(torch.zeros(2100, 2050, device=card), (
             torch.eye(2050, device=card),), ("bf16x3_cor",), write_q=True)
-    assert (gram_stream.WIDE_LAUNCHES,
-            gram_stream.WIDE_GRAM_LAUNCHES) == launches
+    assert trace.counts("launches.") == launches
 
 
 def _tiles(card, b, L, n, seed=1):
@@ -335,9 +334,9 @@ def test_panel_kernel_matches_plain_version(card, mode, n):
     a = _tiles(card, 12, L, n)
     a[:, :, 3] = 0.0           # a zero column: H = I
     a[:, L - 40:, :] = 0.0     # zero rows below every pivot
-    launches = panel_kernel.LAUNCHES
+    launches = trace.counts("launches.")["panel_qr"]
     qt, r = panel_kernel.panel_qr_batched(a, mode)
-    assert panel_kernel.LAUNCHES == launches + 1
+    assert trace.counts("launches.")["panel_qr"] == launches + 1
     qt0, r0 = panel_kernel.panel_qr_reference(a, mode)
     # the two sum in other orders; Q and R of these well-conditioned
     # tiles move by a few ulps of the mode times sqrt(L)
@@ -436,10 +435,9 @@ def test_wide_panel_kernel_shapes_and_modes(card, n, rows, mode):
     L = {"n": n, "2n": min(2 * n, panel_kernel.L_WIDE_MAX),
          "max": panel_kernel.L_WIDE_MAX}[rows]
     a = _tiles(card, 3, L, n, seed=n + L)
-    launches = panel_kernel.LAUNCHES, panel_kernel.WIDE_LAUNCHES
+    launches = trace.counts("launches.")
     qt, r = panel_kernel.panel_qr_batched(a, mode)
-    assert (panel_kernel.LAUNCHES, panel_kernel.WIDE_LAUNCHES) == (
-        launches[0], launches[1] + 1)
+    assert trace.counts("launches.") - launches == {"panel_qr_wide": 1}
     qt0, r0 = panel_kernel.panel_qr_reference(a, mode)
     tol = PANEL_MODES[mode]
     (cq, cr), (cq0, cr0) = _canonical(qt, r), _canonical(qt0, r0)
@@ -476,9 +474,10 @@ def test_tsqr_on_the_wide_leaf_matches_cpu(card, mode):
     import tsqr_tpu_torch
     a = torch.from_numpy(np.random.default_rng(12).uniform(
         -1, 1, (1 << 16, 256)).astype(np.float32))
-    launches = panel_kernel.WIDE_LAUNCHES
+    launches = trace.counts("launches.")["panel_qr_wide"]
     q, r = tsqr_tpu_torch.tsqr(a.to(card), mode)
-    assert panel_kernel.WIDE_LAUNCHES == launches + 1  # one leaf call
+    # one leaf call
+    assert trace.counts("launches.")["panel_qr_wide"] == launches + 1
     q0, r0 = tsqr_tpu_torch.tsqr(a, mode, device="cpu")
     # the same tree on the same leaves, the kernel against its plain
     # version: float32 grade
@@ -494,10 +493,10 @@ def test_tsqr_gradient_on_the_wide_leaf_matches_cpu(card):
     a, w = (torch.from_numpy(rng.uniform(-1, 1, (m, n)).astype(np.float32))
             for _ in range(2))
     v = torch.from_numpy(rng.uniform(-1, 1, (n, n)).astype(np.float32))
-    launches = panel_kernel.WIDE_LAUNCHES
+    launches = trace.counts("launches.")["panel_qr_wide"]
     g_card = _grad(tsqr_tpu_torch.tsqr, a.to(card), w.to(card), v.to(card),
                    mode="bf16x6_cor")
-    assert panel_kernel.WIDE_LAUNCHES > launches
+    assert trace.counts("launches.")["panel_qr_wide"] > launches
     g_cpu = _grad(tsqr_tpu_torch.tsqr, a, w, v, mode="bf16x6_cor",
                   device="cpu")
     assert _rel(g_card.cpu(), g_cpu) <= 1e-5
@@ -511,11 +510,11 @@ def test_ladder_tiers_on_card(card):
         if kappa == 0:
             a_np[:, 33] = 0.0  # a zero column defeats every Gram tier
         a = torch.from_numpy(a_np).to(card)
-        launches = panel_kernel.LAUNCHES
+        launches = trace.counts("launches.")["panel_qr"]
         q, r, info = auto.qr_auto_fused(a, "bf16x6_cor", return_info=True)
         assert info["tier"] == want
         if want == 4:  # two trees (CGS2), one leaf launch each
-            assert panel_kernel.LAUNCHES == launches + 2
+            assert trace.counts("launches.")["panel_qr"] == launches + 2
         assert validation.orthogonality_accurate(q) < 1e-5
         assert validation.residual_accurate(a, q, r) < 1e-5
 
@@ -525,11 +524,11 @@ def test_ladder_tiers_on_card(card):
 def test_probes_match_plain_versions(card, m, n, rows_per_cta):
     a = torch.from_numpy(np.random.default_rng(m + n).uniform(
         -1, 1, (m, n)).astype(np.float32)).to(card)
-    launches = bw_probe.READ_LAUNCHES, bw_probe.COPY_LAUNCHES
+    launches = trace.counts("launches.")
     s = bw_probe.read_reduce(a, rows_per_cta)
     y = bw_probe.copy(a, rows_per_cta)
-    assert (bw_probe.READ_LAUNCHES, bw_probe.COPY_LAUNCHES) == (
-        launches[0] + 1, launches[1] + 1)
+    assert trace.counts("launches.") - launches == {
+        "read_reduce": 1, "read_reduce_sum": 1, "copy": 1}
     # both sum in float64, in other orders: the float32 results differ by
     # at most one rounding
     s0 = bw_probe.read_reduce_reference(a)
@@ -619,12 +618,13 @@ def test_updates_on_card_match_cpu(card, name, mode):
 
     q, r = blockqr.qr(u(m, n), mode, device="cpu")
     extra = (u(512, n), u(m, 16), u(m, 8), u(n, 8))
-    launches = panel_kernel.LAUNCHES
+    launches = trace.counts("launches.")["panel_qr"]
     q1, r1 = _update(name, q.to(card), r.to(card),
                      [x.to(card) for x in extra], mode)
     assert q1.is_cuda and r1.is_cuda
     # every small core but delete_rows' Cholesky reaches the panel kernel
-    assert (panel_kernel.LAUNCHES > launches) == (name != "delete_rows")
+    launched = trace.counts("launches.")["panel_qr"] > launches
+    assert launched == (name != "delete_rows")
     q0, r0 = _update(name, q, r, extra, mode, device="cpu")
     # the same update on the same factors: the card's panel kernel and the
     # CPU's plain version sum in other orders, float32 grade
@@ -646,12 +646,12 @@ def test_trace_records_cuda_kernels(card, tmp_path):
 def test_ablate_no_panel_launches_no_panel_kernel(card):
     from tsqr_tpu_torch.core import blockqr
     a = torch.rand(1 << 12, 256, device=card)
-    launches = panel_kernel.LAUNCHES
+    launches = trace.counts("launches.")["panel_qr"]
     blockqr.qr(a, _ablate="no_panel")
     torch.cuda.synchronize()
-    assert panel_kernel.LAUNCHES == launches
+    assert trace.counts("launches.")["panel_qr"] == launches
     blockqr.qr(a, _ablate="no_project")
-    assert panel_kernel.LAUNCHES == launches + 2
+    assert trace.counts("launches.")["panel_qr"] == launches + 2
 
 
 # ---- core/ooc.py and models/ on the card against the CPU ------------------

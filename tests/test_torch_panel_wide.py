@@ -19,7 +19,7 @@ from tsqr_tpu.ops import householder as jhouseholder
 from tsqr_tpu_torch.core import auto
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.ops import panel_kernel
-from tsqr_tpu_torch.utils import validation
+from tsqr_tpu_torch.utils import trace, validation
 
 torch.set_num_threads(2)
 
@@ -107,7 +107,7 @@ def test_wide_wrapper_checks_shapes_before_any_launch():
     # meta tensors: the checks raise before a library is built or a
     # kernel launched
     md = auto.M("fp32")
-    launches = panel_kernel.WIDE_LAUNCHES
+    launches = trace.counts("launches.")["panel_qr_wide"]
     for shape, what in (((2, 1032, 256), "L <= 1024"),
                         ((2, 1024, 520), "n <= 512")):
         with pytest.raises(ValueError, match=what):
@@ -115,4 +115,4 @@ def test_wide_wrapper_checks_shapes_before_any_launch():
     with pytest.raises(ValueError, match="float32"):
         panel_kernel._panel_kernel(
             torch.empty(2, 512, 256, dtype=torch.float64, device="meta"), md)
-    assert panel_kernel.WIDE_LAUNCHES == launches
+    assert trace.counts("launches.")["panel_qr_wide"] == launches

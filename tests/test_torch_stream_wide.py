@@ -16,6 +16,7 @@ from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import cholqr
 from tsqr_tpu_torch.harness import flops
 from tsqr_tpu_torch.ops import gram_stream
+from tsqr_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -129,14 +130,12 @@ def test_fused_n_max_is_jax(mode):
 def test_wide_stream_dispatches_cpu_tensor_to_plain_version():
     a, rinv, _ = _inputs(1001, 256)
     at, rt = torch.from_numpy(a), torch.from_numpy(rinv)
-    counts = (gram_stream.WIDE_LAUNCHES, gram_stream.WIDE_GRAM_LAUNCHES,
-              gram_stream.REDUCE_LAUNCHES, gram_stream.LAUNCHES)
+    counts = trace.counts("launches.")
     kw = dict(write_q=True, gram_mode="bf16x6_cor")
     q, p = gram_stream.stream(at, (rt,), ("bf16x6_cor",), **kw)
     q0, p0 = gram_stream.stream_reference(at, (rt,), ("bf16x6_cor",), **kw)
     assert torch.equal(q, q0) and torch.equal(p, p0)
-    assert (gram_stream.WIDE_LAUNCHES, gram_stream.WIDE_GRAM_LAUNCHES,
-            gram_stream.REDUCE_LAUNCHES, gram_stream.LAUNCHES) == counts
+    assert trace.counts("launches.") == counts
 
 
 def test_wide_chunk_and_bound():

@@ -23,7 +23,7 @@ from tsqr_tpu_torch.core import blockqr, cholqr, diff
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.ops import gram_stream
 from tsqr_tpu_torch.utils import device as _device
-from tsqr_tpu_torch.utils import validation
+from tsqr_tpu_torch.utils import trace, validation
 
 Tensor = torch.Tensor
 
@@ -73,7 +73,9 @@ def _gate_orth(q: Tensor) -> Tensor:
 def _orth_device(q: Tensor) -> float:
     """||Q^T Q - I||_F / sqrt(n) from a float32 Gram on Q's device."""
     q32 = q.to(torch.float32)
-    return float(_orth_of_gram(modes.mm_fp32(q32.T, q32)))
+    o = _orth_of_gram(modes.mm_fp32(q32.T, q32))
+    with trace.sync("orth_device"):
+        return float(o)
 
 
 def qr_auto(a: Tensor, mode="fp32", fast_method: str = "cholqr3",
@@ -152,6 +154,26 @@ def qr_auto_fused(a: Tensor, mode="fp32",
     ``return_info``."""
     policy = modes.resolve(mode)
     a = _device.place(a, device, "qr_auto_fused")
+    with trace.span("ladder", m=a.shape[0], n=a.shape[1],
+                    mode=policy.mode.value) as sp:
+        q, r, tier, kappa2_est = _ladder(
+            a, policy, fast_method, fast_variant, mid_method, mid_variant,
+            impl, leaf_rows, fanin, reorth, iter_tier)
+        sp.set(tier=tier)
+        io = policy.io_dtype
+        q, r = q.to(io), torch.triu(r).to(io)
+    trace.count(f"ladder.tier{tier}")
+    if return_info:
+        return q, r, {"tier": tier, "kappa2_est": kappa2_est}
+    return q, r
+
+
+def _ladder(a: Tensor, policy: modes.Policy, fast_method: str,
+            fast_variant: str, mid_method: str | None, mid_variant: str,
+            impl: str | None, leaf_rows: int | None, fanin: int | None,
+            reorth: bool, iter_tier: bool):
+    """The tiers of :func:`qr_auto_fused`, each in its span: (Q, R, the
+    tier that accepted them, the tier-0 kappa^2 bound)."""
     tol = _TOL[policy.mode]
     eps = _EPS_GATE[policy.mode]
     mname = policy.mode.value
@@ -162,76 +184,81 @@ def qr_auto_fused(a: Tensor, mode="fp32",
     a32 = cholqr._as_stream_input(a)
 
     # ---- tier 0: shared Gram + predictive kappa^2 bound ----
-    if fused:
-        g = gram_stream.gram_stream(a32, mname)
-    else:
-        g = modes.gram(a32.to(torch.float32), policy)
-    g = (g + g.T) * 0.5
-    r1 = cholqr._chol_r(g, shift=None)
-    rinv1 = cholqr._rinv(r1)
-    minv = modes.mm_fp32(rinv1, rinv1.T)
-    kappa2_est = (cholqr._psd_norm2_bound(g)
-                  * cholqr._psd_norm2_bound(minv)).reshape(1, 1)
-    base = fast_method.removesuffix("_fused")
-    ok1 = bool(kappa2_est < _kappa2_max(base, eps, tol))  # False for NaN
-
-    def done(q, r, tier):
-        q, r = q.to(io), torch.triu(r).to(io)
-        if return_info:
-            return q, r, {"tier": tier, "kappa2_est": kappa2_est}
-        return q, r
+    with trace.span("ladder.tier0"):
+        if fused:
+            g = gram_stream.gram_stream(a32, mname)
+        else:
+            g = modes.gram(a32.to(torch.float32), policy)
+        g = (g + g.T) * 0.5
+        r1 = cholqr._chol_r(g, shift=None)
+        rinv1 = cholqr._rinv(r1)
+        minv = modes.mm_fp32(rinv1, rinv1.T)
+        kappa2_est = (cholqr._psd_norm2_bound(g)
+                      * cholqr._psd_norm2_bound(minv)).reshape(1, 1)
+        base = fast_method.removesuffix("_fused")
+        with trace.sync("tier1_gate"):
+            ok1 = bool(kappa2_est < _kappa2_max(base, eps, tol))  # NaN: no
 
     if ok1:
-        if base == "cholqr1":
-            if fused:
-                q = gram_stream.stream(a32, (rinv1,), (mname,), write_q=True,
-                                       out_dtype=io)
-            else:
-                q = policy.mm(a32.to(torch.float32), rinv1)
-            return done(q, r1, 1)
-        fm = fast_method if fused else base
-        q, r = cholqr.fastqr(a, mode, method=fm, variant=fast_variant,
-                             device=a.device)
-        return done(q, r, 1)
+        with trace.span("ladder.tier1"):
+            if base == "cholqr1":
+                if fused:
+                    q = gram_stream.stream(a32, (rinv1,), (mname,),
+                                           write_q=True, out_dtype=io)
+                else:
+                    q = policy.mm(a32.to(torch.float32), rinv1)
+                return q, r1, 1, kappa2_est
+            fm = fast_method if fused else base
+            q, r = cholqr.fastqr(a, policy, method=fm, variant=fast_variant,
+                                 device=a.device)
+        return q, r, 1, kappa2_est
 
     def tier4():
-        q, r = blockqr.qr(a, policy, reorth=reorth, impl=impl,
-                          leaf_rows=leaf_rows,
-                          fanin=fanin or tsqr_mod.DEFAULT_FANIN,
-                          device=a.device)
-        return done(q, r, 4)
+        with trace.span("ladder.tier4"):
+            q, r = blockqr.qr(a, policy, reorth=reorth, impl=impl,
+                              leaf_rows=leaf_rows,
+                              fanin=fanin or tsqr_mod.DEFAULT_FANIN,
+                              device=a.device)
+        return q, r, 4, kappa2_est
 
     if mid_method is None:
         return tier4()
 
     # ---- tier 2: robust shifted CholeskyQR3 ----
-    mid_fused = mid_method.endswith("_fused") and in_range
-    if (mid_fused and mid_method == "cholqr3_fused"
-            and mid_variant == "compact"
-            and policy.mode not in cholqr._CHEAP_DOT):
-        q_m, r_m, gq = cholqr.cholqr3_fused(a32, mode, variant="compact",
-                                            g1=g, return_qgram=True)
-        orth_m = _orth_of_gram(gq)
-    else:
-        mv = mid_variant if policy.mode not in cholqr._CHEAP_DOT else "safe"
-        mm = mid_method if mid_fused else mid_method.removesuffix("_fused")
-        q_m, r_m = cholqr.fastqr(a, mode, method=mm,
-                                 variant=mv if mm.endswith("_fused")
-                                 else "safe", device=a.device)
-        orth_m = _gate_orth(q_m)
-    if bool(orth_m < tol):
-        return done(q_m, r_m, 2)
+    with trace.span("ladder.tier2"):
+        mid_fused = mid_method.endswith("_fused") and in_range
+        if (mid_fused and mid_method == "cholqr3_fused"
+                and mid_variant == "compact"
+                and policy.mode not in cholqr._CHEAP_DOT):
+            q_m, r_m, gq = cholqr.cholqr3_fused(
+                a32, policy, variant="compact", g1=g, return_qgram=True)
+            orth_m = _orth_of_gram(gq)
+        else:
+            mv = (mid_variant if policy.mode not in cholqr._CHEAP_DOT
+                  else "safe")
+            mm = mid_method if mid_fused else mid_method.removesuffix("_fused")
+            q_m, r_m = cholqr.fastqr(a, policy, method=mm,
+                                     variant=mv if mm.endswith("_fused")
+                                     else "safe", device=a.device)
+            orth_m = _gate_orth(q_m)
+        with trace.sync("tier2_gate"):
+            ok2 = bool(orth_m < tol)
+    if ok2:
+        return q_m, r_m, 2, kappa2_est
     if policy.mode in cholqr._CHEAP_DOT or not iter_tier:
         return tier4()
 
     # ---- tier 3: iterated shifted CholeskyQR ----
-    if in_range:
-        q_i, r_i, gq_i = cholqr.cholqr_iter_fused(a32, mode, g1=g,
-                                                  return_qgram=True)
-        orth_i = _orth_of_gram(gq_i)
-    else:
-        q_i, r_i = cholqr.cholqr_iter(a, mode, g1=g)
-        orth_i = _gate_orth(q_i)
-    if bool(orth_i < tol):
-        return done(q_i, r_i, 3)
+    with trace.span("ladder.tier3"):
+        if in_range:
+            q_i, r_i, gq_i = cholqr.cholqr_iter_fused(a32, policy, g1=g,
+                                                      return_qgram=True)
+            orth_i = _orth_of_gram(gq_i)
+        else:
+            q_i, r_i = cholqr.cholqr_iter(a, policy, g1=g)
+            orth_i = _gate_orth(q_i)
+        with trace.sync("tier3_gate"):
+            ok3 = bool(orth_i < tol)
+    if ok3:
+        return q_i, r_i, 3, kappa2_est
     return tier4()

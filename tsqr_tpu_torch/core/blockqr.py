@@ -35,6 +35,7 @@ from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import cholqr, diff
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.utils import device as _device
+from tsqr_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -143,18 +144,19 @@ def qr(a: Tensor,
         def _tsqr(x):  # noqa: F811 (the profiling stand-in)
             return x, torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
 
-    if n <= nb:
-        q, r = _tsqr(a)
-        if reorth:  # single panel: CGS2's second pass
-            q, w_fac = _tsqr(q)
-            r = mm(w_fac, r)
-        return q.to(policy.io_dtype), torch.triu(r).to(policy.io_dtype)
+    with trace.span("blockqr"):
+        if n <= nb:
+            q, r = _tsqr(a)
+            if reorth:  # single panel: CGS2's second pass
+                q, w_fac = _tsqr(q)
+                r = mm(w_fac, r)
+            return q.to(policy.io_dtype), torch.triu(r).to(policy.io_dtype)
 
-    if loop not in ("auto", "unroll", "fori"):
-        raise ValueError(f"unknown loop strategy {loop!r}")
-    q = a.new_zeros(m, n)
-    r = a.new_zeros(n, n)
-    for c0 in range(0, n, nb):
-        _panel_step(q, r, a[:, c0:c0 + nb], c0, mm, _tsqr, reorth,
-                    full=loop == "fori", project=_ablate != "no_project")
-    return q.to(policy.io_dtype), torch.triu(r).to(policy.io_dtype)
+        if loop not in ("auto", "unroll", "fori"):
+            raise ValueError(f"unknown loop strategy {loop!r}")
+        q = a.new_zeros(m, n)
+        r = a.new_zeros(n, n)
+        for c0 in range(0, n, nb):
+            _panel_step(q, r, a[:, c0:c0 + nb], c0, mm, _tsqr, reorth,
+                        full=loop == "fori", project=_ablate != "no_project")
+        return q.to(policy.io_dtype), torch.triu(r).to(policy.io_dtype)

@@ -33,6 +33,7 @@ from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import diff
 from tsqr_tpu_torch.ops import gram_stream
 from tsqr_tpu_torch.utils import device as _device
+from tsqr_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -488,7 +489,8 @@ def _iter_shifted_loop(g0: Tensor, gram_of_f: Callable, shift_of_g: Callable,
     i, f, rt, g = 0, eye, eye, g0
     k2, orthg = _k2_of_gram(g0), orth_of(g0)
     while True:
-        k2_h, orthg_h = torch.cat([k2, orthg]).reshape(2).tolist()
+        with trace.sync("iter_loop"):
+            k2_h, orthg_h = torch.cat([k2, orthg]).reshape(2).tolist()
         converged = orthg_h < _ORTH_EXIT or k2_h < _K2_EXIT  # NaN: False
         if agree(i >= max_shifted or converged):
             return f, rt, g, i, orthg_h

@@ -28,6 +28,7 @@ from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import diff
 from tsqr_tpu_torch.ops import householder, panel_kernel
 from tsqr_tpu_torch.utils import device as _device
+from tsqr_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -191,71 +192,77 @@ def tsqr(a: Tensor,
         leaf elements, else enough to keep each chunk near
         LEAF_CHUNK_ELEMS.
     """
-    policy = modes.resolve(mode)
-    a = _device.place(a, device, "tsqr")
-    m, n = a.shape
-    if m < n:
-        raise ValueError(f"tsqr requires m >= n, got {tuple(a.shape)}")
-    a = a.to(torch.float32)
-    mm = policy.mm
-    impl = leaf_impl(impl, n)
-    if leaf_rows is None:
-        leaf_rows = (default_leaf_rows(n, impl) if leaf_qr is None
-                     else DEFAULT_LEAF_ROWS)
-    if leaf_qr is None:
-        leaf_qr = _make_batched_qr(policy, impl, block)
-    batched_qr = _make_batched_qr(policy, tree_impl, block)
-    io, work = policy.io_dtype, policy.work_dtype
+    with trace.span("tsqr.tree"):
+        policy = modes.resolve(mode)
+        a = _device.place(a, device, "tsqr")
+        m, n = a.shape
+        if m < n:
+            raise ValueError(f"tsqr requires m >= n, got {tuple(a.shape)}")
+        a = a.to(torch.float32)
+        mm = policy.mm
+        impl = leaf_impl(impl, n)
+        if leaf_rows is None:
+            leaf_rows = (default_leaf_rows(n, impl) if leaf_qr is None
+                         else DEFAULT_LEAF_ROWS)
+        if leaf_qr is None:
+            leaf_qr = _make_batched_qr(policy, impl, block)
+        batched_qr = _make_batched_qr(policy, tree_impl, block)
+        io, work = policy.io_dtype, policy.work_dtype
 
-    bs, L, m_pad = plan_tree(m, n, leaf_rows, fanin)
-    a = _pad_rows(a, m_pad)
+        bs, L, m_pad = plan_tree(m, n, leaf_rows, fanin)
+        a = _pad_rows(a, m_pad)
 
-    if bs == 1:
-        q, r = leaf_qr(a[None])
-        r_out = r[0].to(io)
-        q_out = q[0, :m].to(io) if want_q else None
-        return (q_out, r_out, [q]) if collect_level_q else (q_out, r_out)
+        if bs == 1:
+            with trace.span("tsqr.leaves"):
+                q, r = leaf_qr(a[None])
+            r_out = r[0].to(io)
+            q_out = q[0, :m].to(io) if want_q else None
+            return (q_out, r_out, [q]) if collect_level_q else (q_out, r_out)
 
-    # ---- forward: leaf QR, then the R-reduction tree ----
-    leaves = a.reshape(bs, L, n)
-    seq = _leaf_chunks(bs, L * n) if seq_chunks is None else seq_chunks
-    if seq > 1 and bs % seq == 0:
-        outs = [leaf_qr(c) for c in leaves.reshape(seq, bs // seq, L, n)]
-        q0 = [qc.to(work) for qc, _ in outs]
-        r = torch.cat([rc for _, rc in outs])
-    else:
-        seq = 1
-        q0, r = leaf_qr(leaves)
-        q0 = [q0.to(work)]
+        # ---- forward: leaf QR, then the R-reduction tree ----
+        leaves = a.reshape(bs, L, n)
+        seq = _leaf_chunks(bs, L * n) if seq_chunks is None else seq_chunks
+        with trace.span("tsqr.leaves"):
+            if seq > 1 and bs % seq == 0:
+                outs = [leaf_qr(c)
+                        for c in leaves.reshape(seq, bs // seq, L, n)]
+                q0 = [qc.to(work) for qc, _ in outs]
+                r = torch.cat([rc for _, rc in outs])
+            else:
+                seq = 1
+                q0, r = leaf_qr(leaves)
+                q0 = [q0.to(work)]
 
-    qs: list[Tensor] = []
-    widths: list[int] = []
-    while r.shape[0] > 1:
-        b = r.shape[0]
-        f = min(fanin, b)
-        qk, r = batched_qr(r.reshape(b // f, f * n, n))
-        qs.append(qk.to(work))
-        widths.append(f)
-    r_out = torch.triu(r[0])
+        qs: list[Tensor] = []
+        widths: list[int] = []
+        while r.shape[0] > 1:
+            b = r.shape[0]
+            f = min(fanin, b)
+            with trace.span("tsqr.level", batch=b // f):
+                qk, r = batched_qr(r.reshape(b // f, f * n, n))
+                qs.append(qk.to(work))
+            widths.append(f)
+        r_out = torch.triu(r[0])
 
-    if not want_q:
-        r_only = r_out.to(io)
-        return (None, r_only, [torch.cat(q0)] + qs) if collect_level_q \
-            else (None, r_only)
+        if not want_q:
+            r_only = r_out.to(io)
+            return (None, r_only, [torch.cat(q0)] + qs) if collect_level_q \
+                else (None, r_only)
 
-    # ---- backward: Q reconstruction down the tree ----
-    # c starts as the root Q cut into per-child (n, n) blocks
-    c = qs[-1].to(torch.float32).reshape(widths[-1], n, n)
-    for qk, f in zip(reversed(qs[:-1]), reversed(widths[:-1])):
-        prod = mm(qk.to(torch.float32), c)           # (bk, f n, n)
-        c = prod.reshape(prod.shape[0] * f, n, n)
-    parts = [mm(qc.to(torch.float32), cc)          # (bs / seq, L, n)
-             for qc, cc in zip(q0, c.reshape(seq, bs // seq, n, n))]
-    q = parts[0] if seq == 1 else torch.cat(parts)
-    q = q.reshape(m_pad, n)[:m]
-    if collect_level_q:
-        return q.to(io), r_out.to(io), [torch.cat(q0)] + qs
-    return q.to(io), r_out.to(io)
+        # ---- backward: Q reconstruction down the tree ----
+        with trace.span("tsqr.q_build"):
+            # c starts as the root Q cut into per-child (n, n) blocks
+            c = qs[-1].to(torch.float32).reshape(widths[-1], n, n)
+            for qk, f in zip(reversed(qs[:-1]), reversed(widths[:-1])):
+                prod = mm(qk.to(torch.float32), c)           # (bk, f n, n)
+                c = prod.reshape(prod.shape[0] * f, n, n)
+            parts = [mm(qc.to(torch.float32), cc)          # (bs / seq, L, n)
+                     for qc, cc in zip(q0, c.reshape(seq, bs // seq, n, n))]
+            q = parts[0] if seq == 1 else torch.cat(parts)
+            q = q.reshape(m_pad, n)[:m]
+        if collect_level_q:
+            return q.to(io), r_out.to(io), [torch.cat(q0)] + qs
+        return q.to(io), r_out.to(io)
 
 
 def get_batch_size(m: int, leaf_rows: int = DEFAULT_LEAF_ROWS,

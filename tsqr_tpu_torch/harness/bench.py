@@ -30,6 +30,7 @@ handling serve its TPU tunnel and are not carried over.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import statistics
@@ -41,9 +42,8 @@ import torch
 
 from tsqr_tpu_torch.core import auto
 from tsqr_tpu_torch.harness import flops
-from tsqr_tpu_torch.ops import gram_stream, panel_kernel
 from tsqr_tpu_torch.utils import device as _device
-from tsqr_tpu_torch.utils import status, timing, validation
+from tsqr_tpu_torch.utils import status, timing, trace, validation
 
 MODE = "bf16x6_cor"
 METRIC = "qr_auto_bf16x6_cor_tflops"
@@ -67,17 +67,10 @@ def ladder(x: torch.Tensor, iter_tier: bool = True,
                               return_info=return_info, device=x.device)
 
 
-def launch_counts() -> dict:
-    """The stream and panel kernels' launches in this process so far."""
-    return {"stream_gram": gram_stream.LAUNCHES,
-            "stream_gram_alias_q": gram_stream.ALIAS_LAUNCHES,
-            "stream_gram_reduce": gram_stream.REDUCE_LAUNCHES,
-            "stream_wide_dot": gram_stream.WIDE_LAUNCHES,
-            "stream_wide_gram": gram_stream.WIDE_GRAM_LAUNCHES,
-            "stream_wide_dot_fp32": gram_stream.WIDE_FP32_LAUNCHES,
-            "stream_wide_gram_fp32": gram_stream.WIDE_GRAM_FP32_LAUNCHES,
-            "panel_qr": panel_kernel.LAUNCHES,
-            "panel_qr_wide": panel_kernel.WIDE_LAUNCHES}
+def launch_counts() -> collections.Counter:
+    """The kernels' launches in this process so far, by kernel (the
+    counters ``launches.<kernel>`` of ``utils/trace.py``)."""
+    return trace.counts("launches.")
 
 
 def reported(tflops: float) -> float:
@@ -115,8 +108,7 @@ def run(m: int, n: int, k: int, iter_tier: bool = True, *, device=None,
     q, r, info = ladder(xs[0], iter_tier, return_info=True)
     if card:
         torch.cuda.synchronize(dev)
-    gate_launches = {key: v - before[key]
-                     for key, v in launch_counts().items()}
+    gate_launches = launch_counts() - before
     if card and (gate_launches["stream_gram"] < 2
                  or gate_launches["stream_gram_reduce"] < 1):
         raise RuntimeError("the gate call on the card did not run the "

@@ -21,6 +21,7 @@ its gates and to the single-card results.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
@@ -29,9 +30,9 @@ import torch.distributed as dist
 
 from tsqr_tpu_torch import models
 from tsqr_tpu_torch.core import ooc
-from tsqr_tpu_torch.ops import gram_stream, panel_kernel
 from tsqr_tpu_torch.parallel import comm, dryrun, dtsqr
 from tsqr_tpu_torch.parallel import mesh as mesh_mod
+from tsqr_tpu_torch.utils import trace
 
 DEVICE = "cuda"
 MODE = "bf16x6_cor"
@@ -88,39 +89,22 @@ def driver_input(kind: str, seed: int, index: int) -> torch.Tensor:
     return a
 
 
-def launches() -> dict:
-    return {"stream_gram": gram_stream.LAUNCHES,
-            "stream_gram_reduce": gram_stream.REDUCE_LAUNCHES,
-            "stream_wide_dot": gram_stream.WIDE_LAUNCHES,
-            "stream_wide_gram": gram_stream.WIDE_GRAM_LAUNCHES,
-            "stream_wide_dot_fp32": gram_stream.WIDE_FP32_LAUNCHES,
-            "stream_wide_gram_fp32": gram_stream.WIDE_GRAM_FP32_LAUNCHES,
-            "panel_qr": panel_kernel.LAUNCHES,
-            "panel_qr_wide": panel_kernel.WIDE_LAUNCHES}
-
-
-def _zero_launches() -> None:
-    gram_stream.LAUNCHES = gram_stream.REDUCE_LAUNCHES = 0
-    gram_stream.WIDE_LAUNCHES = gram_stream.WIDE_GRAM_LAUNCHES = 0
-    gram_stream.WIDE_FP32_LAUNCHES = gram_stream.WIDE_GRAM_FP32_LAUNCHES = 0
-    panel_kernel.LAUNCHES = panel_kernel.WIDE_LAUNCHES = 0
-
-
 class Count:
-    """The kernel launches of first calls only: ``start`` sets the counts
-    to 0 just before a call, ``add`` reads them just after and adds them
-    to ``total``."""
+    """The kernel launches of first calls only (the counters
+    ``launches.<kernel>`` of ``utils/trace.py``): ``start`` reads them
+    just before a call, ``add`` takes the launches since then, just after,
+    and adds them to ``total``."""
 
     def __init__(self):
-        self.total = {k: 0 for k in launches()}
+        self.total = collections.Counter()
+        self._before = collections.Counter()
 
     def start(self):
-        _zero_launches()
+        self._before = trace.counts("launches.")
 
-    def add(self) -> dict:
-        now = launches()
-        for k in now:
-            self.total[k] += now[k]
+    def add(self) -> collections.Counter:
+        now = trace.counts("launches.") - self._before
+        self.total.update(now)
         return now
 
 

@@ -17,16 +17,18 @@ import ctypes
 
 import torch
 
+from tsqr_tpu_torch.utils import trace
+
 Tensor = torch.Tensor
 
 COPY_SCALE = 1.0 + 2.0 ** -23   # the float32 nearest 1.0000001
 DEFAULT_ROWS_PER_CTA = 4096
 COPY_DEFAULT_ROWS_PER_CTA = 8   # the copy's default: many short CTAs
 
-# Kernel launches, counted where each kernel is launched.
-READ_LAUNCHES = 0       # bw_read_kernel
-READ_SUM_LAUNCHES = 0   # bw_read_sum_kernel
-COPY_LAUNCHES = 0       # bw_copy_kernel
+# Kernel launches are counted where each kernel is launched, in the
+# counters of utils/trace.py: launches.read_reduce (bw_read_kernel),
+# launches.read_reduce_sum (bw_read_sum_kernel), launches.copy
+# (bw_copy_kernel).
 
 
 def read_reduce_reference(a: Tensor) -> Tensor:
@@ -85,7 +87,6 @@ def read_reduce(a: Tensor,
     one read of A.  On the card: each CTA sums ``rows_per_cta`` rows into a
     float64 partial, and a second launch adds the partials in a fixed
     order."""
-    global READ_LAUNCHES, READ_SUM_LAUNCHES
     _check(a, "read_reduce")
     m, n = a.shape
     if m % 8:
@@ -102,10 +103,10 @@ def read_reduce(a: Tensor,
     lib = _lib()
     _raise_on(lib.bw_read_launch(a.data_ptr(), partials.data_ptr(), m, n, gpc,
                                  grid, stream), "bw_read_kernel launch")
-    READ_LAUNCHES += 1
+    trace.count("launches.read_reduce")
     _raise_on(lib.bw_read_sum(partials.data_ptr(), out.data_ptr(), grid,
                               8 * n, stream), "bw_read_sum_kernel launch")
-    READ_SUM_LAUNCHES += 1
+    trace.count("launches.read_reduce_sum")
     return out
 
 
@@ -114,7 +115,6 @@ def copy(a: Tensor,
     """y = A * c (c = ``COPY_SCALE``) into a new float32 tensor: one read
     and one write of A, bit for bit the plain version's.  On the card each
     CTA streams ``rows_per_cta`` contiguous rows."""
-    global COPY_LAUNCHES
     _check(a, "copy")
     if a.device.type == "cpu":
         return copy_reference(a)
@@ -127,5 +127,5 @@ def copy(a: Tensor,
                                     rows_per_cta * n, COPY_SCALE, grid,
                                     stream),
               "bw_copy_kernel launch")
-    COPY_LAUNCHES += 1
+    trace.count("launches.copy")
     return y

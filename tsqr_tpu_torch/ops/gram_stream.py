@@ -36,6 +36,7 @@ from typing import Sequence
 import torch
 
 from tsqr_tpu_torch import modes
+from tsqr_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -53,22 +54,19 @@ _BLOCK_CHUNKS = 1024    # chunks whose Gram contributions the plain
 # ("STREAM_GRAM_PROFILE",) to compile the phase timers in.
 BUILD_DEFINES: tuple[str, ...] = ()
 
-# Kernel launches, counted where each kernel is launched.
-LAUNCHES = 0            # stream_gram_kernel
-ALIAS_LAUNCHES = 0      # calls with Q written over A (alias_q), either kernel
-REDUCE_LAUNCHES = 0     # stream_gram_reduce_kernel
-# Each launch with dots also launches stream_gram_split_r_kernel first,
-# which splits the factors once; it is counted with LAUNCHES.
-# The wide kernels' launches (a dot's, the Gram's and the store's once a
-# row chunk; the factors' split once a call; x's split once a chunk and a
-# product off fp32).
-WIDE_LAUNCHES = 0          # wide_dot_kernel (the split modes)
-WIDE_GRAM_LAUNCHES = 0     # wide_gram_kernel (the split modes)
-WIDE_FP32_LAUNCHES = 0     # wide_dot_fp32_kernel
-WIDE_GRAM_FP32_LAUNCHES = 0  # wide_gram_fp32_kernel
-WIDE_STORE_LAUNCHES = 0    # wide_store_kernel: Q from a scratch x
-WIDE_SPLIT_LAUNCHES = 0    # wide_split_r_kernel
-WIDE_SPLIT_X_LAUNCHES = 0  # wide_split_x_kernel
+# Kernel launches are counted where each kernel is launched, in the
+# counters launches.<kernel> of utils/trace.py: stream_gram
+# (stream_gram_kernel, and the stream_gram_split_r_kernel that a launch
+# with dots runs first to split the factors), stream_gram_alias_q (the
+# launches of either kernel that write Q over A), stream_gram_reduce, and
+# the wide kernels' (a dot's, the Gram's and the store's once a row chunk;
+# the factors' split once a call; x's split once a chunk and a product off
+# fp32): stream_wide_dot, stream_wide_gram (the split modes),
+# stream_wide_dot_fp32, stream_wide_gram_fp32, stream_wide_store (Q from a
+# scratch x), stream_wide_split_r, stream_wide_split_x.
+_WIDE_COUNTERS = ("stream_wide_dot", "stream_wide_gram", "stream_wide_store",
+                  "stream_wide_split_r", "stream_wide_split_x",
+                  "stream_wide_dot_fp32", "stream_wide_gram_fp32")
 
 M = modes.ComputeMode
 # split parts per mode: (parts, rounded to bf16); the residual order of
@@ -287,14 +285,14 @@ def _grid(m, n, dot_codes, gram_code, device):
 def reduce_partials(partials: Tensor) -> Tensor:
     """Launch the reduction stage: sum the (slabs, n, n) float64 partials
     over the slabs in a fixed order, in float64, into a float32 (n, n)."""
-    global REDUCE_LAUNCHES
     slabs, n, _ = partials.shape
     out = torch.empty(n, n, dtype=torch.float32, device=partials.device)
     stream = torch.cuda.current_stream(partials.device).cuda_stream
-    _raise_on(_lib().stream_gram_reduce(partials.data_ptr(), out.data_ptr(),
-                                        slabs, n * n, stream),
-              "stream_gram_reduce")
-    REDUCE_LAUNCHES += 1
+    with trace.span("stream.launch"):
+        err = _lib().stream_gram_reduce(partials.data_ptr(), out.data_ptr(),
+                                        slabs, n * n, stream)
+    _raise_on(err, "stream_gram_reduce")
+    trace.count("launches.stream_gram_reduce")
     return out
 
 
@@ -334,7 +332,6 @@ def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
                    residual, alias_q=False):
     """Launch the CUDA kernel (and, for a Gram, its reduction stage);
     with ``alias_q`` the kernel writes Q over A."""
-    global LAUNCHES, ALIAS_LAUNCHES
     m, n = a.shape
     if n > N_MAX:
         raise ValueError(f"the stream kernel takes n <= {N_MAX}, got {n}")
@@ -348,16 +345,18 @@ def _stream_kernel(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
     image = (torch.empty(len(rs) * _lib().stream_gram_r_image_bytes(),
                          dtype=torch.uint8, device=a.device) if rs else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib().stream_gram_launch(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), *ptrs, len(rs),
-        *codes, *res, image.data_ptr() if image is not None else None,
-        q.data_ptr() if write_q else None,
-        int(out_dtype == torch.bfloat16), int(write_q), int(alias_q),
-        gram_code, partials.data_ptr() if partials is not None else None,
-        m, n, grid, stream)
+    with trace.span("stream.launch"):
+        err = _lib().stream_gram_launch(
+            a.data_ptr(), int(a.dtype == torch.bfloat16), *ptrs, len(rs),
+            *codes, *res, image.data_ptr() if image is not None else None,
+            q.data_ptr() if write_q else None,
+            int(out_dtype == torch.bfloat16), int(write_q), int(alias_q),
+            gram_code, partials.data_ptr() if partials is not None else None,
+            m, n, grid, stream)
     _raise_on(err, "stream_gram_kernel launch")
-    LAUNCHES += 1
-    ALIAS_LAUNCHES += int(alias_q)
+    trace.count("launches.stream_gram")
+    if alias_q:
+        trace.count("launches.stream_gram_alias_q")
     outs = [q] if write_q else []
     if gram_m is not None:
         outs.append(reduce_partials(partials))
@@ -397,9 +396,6 @@ def _stream_wide(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
                  residual, alias_q=False):
     """Launch the wide kernels (``csrc/stream_wide.cu``) over A's row
     chunks, then, for a Gram, the reduction stage over its partials."""
-    global WIDE_LAUNCHES, WIDE_GRAM_LAUNCHES, WIDE_STORE_LAUNCHES
-    global WIDE_SPLIT_LAUNCHES, WIDE_SPLIT_X_LAUNCHES, ALIAS_LAUNCHES
-    global WIDE_FP32_LAUNCHES, WIDE_GRAM_FP32_LAUNCHES
     m, n = a.shape
     if not N_MAX < n <= WIDE_N_MAX:
         raise ValueError(f"the wide stream kernels take {N_MAX} < n <= "
@@ -424,25 +420,23 @@ def _stream_wide(a: Tensor, rinvs, dot_ms, write_q, gram_m, out_dtype,
     parts = (torch.empty(3, rows, lib.stream_wide_kpad(n),
                          dtype=torch.bfloat16, device=dev)
              if max(codes[:len(rs)] + [gram_code]) > 0 else None)
-    launches = (ctypes.c_int * 7)()
-    err = lib.stream_wide_launch(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), *ptrs, len(rs),
-        *codes, *res, image.data_ptr() if image is not None else None,
-        q.data_ptr() if write_q else None, q_bf16, int(write_q),
-        int(alias_q), gram_code,
-        partials.data_ptr() if partials is not None else None,
-        *(s.data_ptr() if s is not None else None for s in scratch),
-        parts.data_ptr() if parts is not None else None,
-        m, n, torch.cuda.current_stream(dev).cuda_stream, launches)
-    WIDE_LAUNCHES += launches[0]
-    WIDE_GRAM_LAUNCHES += launches[1]
-    WIDE_STORE_LAUNCHES += launches[2]
-    WIDE_SPLIT_LAUNCHES += launches[3]
-    WIDE_SPLIT_X_LAUNCHES += launches[4]
-    WIDE_FP32_LAUNCHES += launches[5]
-    WIDE_GRAM_FP32_LAUNCHES += launches[6]
+    launches = (ctypes.c_int * len(_WIDE_COUNTERS))()
+    with trace.span("stream.launch"):
+        err = lib.stream_wide_launch(
+            a.data_ptr(), int(a.dtype == torch.bfloat16), *ptrs, len(rs),
+            *codes, *res, image.data_ptr() if image is not None else None,
+            q.data_ptr() if write_q else None, q_bf16, int(write_q),
+            int(alias_q), gram_code,
+            partials.data_ptr() if partials is not None else None,
+            *(s.data_ptr() if s is not None else None for s in scratch),
+            parts.data_ptr() if parts is not None else None,
+            m, n, torch.cuda.current_stream(dev).cuda_stream, launches)
+    for name, k in zip(_WIDE_COUNTERS, launches):
+        if k:
+            trace.count("launches." + name, k)
     _raise_on(err, "stream_wide launch")
-    ALIAS_LAUNCHES += int(alias_q)
+    if alias_q:
+        trace.count("launches.stream_gram_alias_q")
     outs = [q] if write_q else []
     if gram_m is not None:
         outs.append(reduce_partials(partials))
@@ -476,31 +470,33 @@ def stream(a: Tensor,
     the wide kernels, in every mode; a wider n raises on either device.
     A CUDA tensor goes through the CUDA kernels, which raise for what they
     do not take; a CPU tensor through :func:`stream_reference`."""
-    residual = _check(a, rinvs, dot_modes, write_q, gram_mode, residual,
-                      out_dtype, alias_q)
-    if a.shape[1] > WIDE_N_MAX:
-        raise ValueError(f"the stream kernels take n <= {WIDE_N_MAX}, got "
-                         f"n={a.shape[1]}")
-    if a.device.type == "cpu":
-        return stream_reference(a, rinvs, dot_modes, write_q, gram_mode,
-                                chunk, out_dtype, residual, alias_q)
-    if a.device.type != "cuda":
-        raise ValueError(f"stream runs on cuda or cpu, got {a.device}")
-    if chunk != CHUNK_ROWS:
-        raise ValueError(f"the stream kernel compensates every {CHUNK_ROWS} "
-                         f"rows; got chunk={chunk}")
-    dot_ms = [_mode(d) for d in dot_modes]
-    gram_m = _mode(gram_mode) if gram_mode is not None else None
-    launch = _stream_kernel if a.shape[1] <= N_MAX else _stream_wide
-    return launch(a, rinvs, dot_ms, write_q, gram_m, out_dtype or a.dtype,
-                  residual, alias_q)
+    with trace.span("stream"):
+        residual = _check(a, rinvs, dot_modes, write_q, gram_mode, residual,
+                          out_dtype, alias_q)
+        if a.shape[1] > WIDE_N_MAX:
+            raise ValueError(f"the stream kernels take n <= {WIDE_N_MAX}, "
+                             f"got n={a.shape[1]}")
+        if a.device.type == "cpu":
+            return stream_reference(a, rinvs, dot_modes, write_q, gram_mode,
+                                    chunk, out_dtype, residual, alias_q)
+        if a.device.type != "cuda":
+            raise ValueError(f"stream runs on cuda or cpu, got {a.device}")
+        if chunk != CHUNK_ROWS:
+            raise ValueError(f"the stream kernel compensates every "
+                             f"{CHUNK_ROWS} rows; got chunk={chunk}")
+        dot_ms = [_mode(d) for d in dot_modes]
+        gram_m = _mode(gram_mode) if gram_mode is not None else None
+        launch = _stream_kernel if a.shape[1] <= N_MAX else _stream_wide
+        return launch(a, rinvs, dot_ms, write_q, gram_m,
+                      out_dtype or a.dtype, residual, alias_q)
 
 
 def gram_stream(a: Tensor, mode: str = "fp32",
                 chunk: int = GRAM_CHUNK) -> Tensor:
     """G = A^T A in one read of A."""
-    p = stream(a, gram_mode=modes.resolve(mode).mode.value, chunk=chunk)
-    return p + p.T
+    with trace.span("stream"):
+        p = stream(a, gram_mode=modes.resolve(mode).mode.value, chunk=chunk)
+        return p + p.T
 
 
 def qpass_stream(a: Tensor, rinv: Tensor, mode: str = "fp32",

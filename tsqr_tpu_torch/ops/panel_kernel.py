@@ -11,12 +11,13 @@ fallback.  Two kernels, by width:
 * n <= ``N_MAX`` (128): ``csrc/panel_qr.cu``, the tile resident in one
   CTA's shared memory; n <= L <= :func:`max_leaf_rows` (what that
   memory holds, and at most ``L_MAX``: two rows a thread in the column
-  chain).  Launches counted in ``LAUNCHES``.
+  chain).  Launches counted in the counter ``launches.panel_qr``
+  (``utils/trace.py``).
 * ``N_MAX`` < n <= ``WIDE_N_MAX`` (512, the JAX kernel's edge):
   ``csrc/panel_wide.cu``, the tile in device memory and one 16-column
   block at a time on chip; n <= L <= ``L_WIDE_MAX`` (four rows a thread
-  in the column chain).  Calls counted in ``WIDE_LAUNCHES``, each
-  :func:`wide_kernel_launches` kernel launches.
+  in the column chain).  Calls counted in ``launches.panel_qr_wide``,
+  each :func:`wide_kernel_launches` kernel launches.
 
 Both run W-Y blocks of ``BLOCK`` (16) columns in the modes fp32, bf16,
 bf16_nocor, bf16x3_nocor, bf16x3_cor and bf16x6_cor.  :func:`leaf_rows`
@@ -31,6 +32,7 @@ import torch
 
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.ops import gram_stream
+from tsqr_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 _dot_mode = gram_stream._dot_mode  # a product at a mode, split as B1's
@@ -48,11 +50,6 @@ _YS = 24               # bf16 a row of a Y part in shared memory
 # Preprocessor defines of the kernel build; harness/phase_profile.py sets
 # ("PANEL_QR_PROFILE",) to compile the phase timers in.
 BUILD_DEFINES: tuple[str, ...] = ()
-
-# Kernel launches, counted where the kernel is launched: panel_qr.cu's,
-# and the calls of panel_wide.cu (each its launch sequence).
-LAUNCHES = 0
-WIDE_LAUNCHES = 0
 
 
 def smem_bytes(L: int, n: int) -> int:
@@ -230,7 +227,6 @@ def _wide_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
     """Launch the wide kernel's sequence on a (B, L, n) float32 batch,
     ``N_MAX`` < n <= ``WIDE_N_MAX``: the work tile, the reflectors'
     diagonals and the blocks' T are scratch of the call."""
-    global WIDE_LAUNCHES
     B, L, n = a.shape
     if L > L_WIDE_MAX:
         raise ValueError(f"the wide panel kernel takes L <= {L_WIDE_MAX} "
@@ -250,13 +246,12 @@ def _wide_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
         qw.data_ptr(), vd.data_ptr(), tm.data_ptr(), B, L, n,
         gram_stream._kernel_code(md), stream)
     gram_stream._raise_on(err, "panel_wide launch")
-    WIDE_LAUNCHES += 1
+    trace.count("launches.panel_qr_wide")
     return qt, r
 
 
 def _panel_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
     """Launch the CUDA kernel on a (B, L, n) float32 batch."""
-    global LAUNCHES
     B, L, n = a.shape
     if n > WIDE_N_MAX:
         raise ValueError(f"the panel kernels take n <= {WIDE_N_MAX}, got "
@@ -276,7 +271,7 @@ def _panel_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
     err = _lib().panel_qr_launch(a.data_ptr(), qt.data_ptr(), r.data_ptr(),
                                  B, L, n, gram_stream._kernel_code(md), stream)
     gram_stream._raise_on(err, "panel_qr_kernel launch")
-    LAUNCHES += 1
+    trace.count("launches.panel_qr")
     return qt, r
 
 
