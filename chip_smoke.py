@@ -509,15 +509,23 @@ def inner_levels(bs: int, fanin: int) -> int:
     return levels
 
 
-def wide_panel_path(m: int, n: int, gen) -> dict:
-    """tsqr at (m, n) f32 MODE on the wide kernel's leaf: held to < 1e-5,
-    its leaf launches counted, every blocked-Householder call an inner
-    node (recorded by shape), timed beside the same call with the
-    blocked-Householder leaf (impl="jnp", the route before the port)."""
-    a = torch.rand(m, n, device="cuda", generator=gen) * 2 - 1
+def tree_launches(m: int, n: int) -> tuple[int, int, int]:
+    """(leaves, leaf rows, inner levels) of the default tree at (m, n)."""
     fanin = tsqr_mod.DEFAULT_FANIN
     bs, L, _ = tsqr_mod.plan_tree(m, n, tsqr_mod.default_leaf_rows(n),
                                   fanin)
+    return bs, L, inner_levels(bs, tsqr_mod.inner_route(None, n, fanin)[1])
+
+
+def wide_panel_path(m: int, n: int, gen) -> dict:
+    """tsqr at (m, n) f32 MODE on the wide kernel: held to < 1e-5, one
+    wide-kernel call for the leaves and one a level of inner nodes, and
+    no blocked-Householder call (recorded by shape); timed beside the
+    same call with the blocked-Householder leaf (impl="jnp", the route
+    before the port)."""
+    a = torch.rand(m, n, device="cuda", generator=gen) * 2 - 1
+    fanin = tsqr_mod.DEFAULT_FANIN
+    bs, L, levels = tree_launches(m, n)
     hh = []
     plain_hh = householder.blocked_householder_qr
     householder.blocked_householder_qr = (
@@ -526,21 +534,24 @@ def wide_panel_path(m: int, n: int, gen) -> dict:
     try:
         torch.cuda.synchronize()
         reset_counts()
+        inner = trace.counts("tsqr.inner.")
         q, r = tsqr_tpu_torch.tsqr(a, MODE)
         torch.cuda.synchronize()
         counts = read_counts()
+        inner = trace.counts("tsqr.inner.") - inner
     finally:
         householder.blocked_householder_qr = plain_hh
     orth = validation.orthogonality_accurate(q)
     res = validation.residual_accurate(a, q, r)
     del q, r
-    inner = all(s[1] % n == 0 and s[1] // n >= 2 for s in hh)
-    if not (orth < 1e-5 and res < 1e-5 and counts["panel_qr_wide"] >= 1
-            and not counts["panel_qr"] and inner
-            and len(hh) == inner_levels(bs, fanin)):
+    if not (orth < 1e-5 and res < 1e-5
+            and counts["panel_qr_wide"] == 1 + levels
+            and not counts["panel_qr"] and not hh
+            and inner == {"kernel": levels}):
         raise AssertionError(f"tsqr ({m}, {n}) on the wide leaf: orth "
                              f"{orth:.2e} residual {res:.2e} launches "
-                             f"{counts} Householder calls {hh}")
+                             f"{counts} inner levels {inner} Householder "
+                             f"calls {hh}")
     # the gated call warmed the path; the eager leaf's call takes seconds
     ms = timing.time_cuda(lambda: tsqr_tpu_torch.tsqr(a, MODE), reps=2,
                           warmup=0)
@@ -548,6 +559,8 @@ def wide_panel_path(m: int, n: int, gen) -> dict:
                                                           impl="jnp"),
                               reps=1, warmup=0)
     out = {"shape": [m, n], "leaves": [bs, L, n], "fanin": fanin,
+           "inner_fanin": tsqr_mod.inner_route(None, n, fanin)[1],
+           "inner_levels": levels,
            "orthogonality": orth, "residual": res,
            "launches": kernel_launches(counts),
            "householder_calls": [list(s) for s in hh],
@@ -674,14 +687,18 @@ def phase_panel_wide(gen) -> dict:
 def phase_tier4(gen) -> dict:
     """The ladder on the bench shape with one zeroed column: tiers 0-3
     fail their gates and tier 4 runs BlockQR (CGS2, one panel) over two
-    Householder trees whose leaves are the panel kernel."""
+    Householder trees, their leaves and inner nodes on the panel kernel:
+    one launch for the leaves and one a level, each tree."""
     a = torch.rand(M_MAIN, N, device="cuda", generator=gen) * 2 - 1
     a[:, ZERO_COL] = 0.0
+    bs, L, levels = tree_launches(M_MAIN, N)
     torch.cuda.synchronize()
     reset_counts()
+    inner = trace.counts("tsqr.inner.")
     q, r, info = tsqr_tpu_torch.qr_auto_fused(a, MODE, return_info=True)
     torch.cuda.synchronize()
     counts = read_counts()
+    inner = trace.counts("tsqr.inner.") - inner
     orth = validation.orthogonality_accurate(q)
     res = validation.residual_accurate(a, q, r)
     if info["tier"] != 4:
@@ -689,8 +706,10 @@ def phase_tier4(gen) -> dict:
     if not (orth < 1e-5 and res < 1e-5):
         raise AssertionError(f"tier-4 path orth {orth:.2e} residual "
                              f"{res:.2e}")
-    if counts["panel_qr"] < 2 or counts["stream_gram"] < 1:
-        raise AssertionError(f"tier-4 path launches {counts}")
+    if (counts["panel_qr"] != 2 * (1 + levels) or counts["stream_gram"] < 1
+            or inner != {"kernel": 2 * levels}):
+        raise AssertionError(f"tier-4 path launches {counts}, inner levels "
+                             f"{inner}")
     del q, r
     ladder = timing.time_cuda(lambda: tsqr_tpu_torch.qr_auto_fused(a, MODE),
                               reps=3, warmup=1)
@@ -703,14 +722,14 @@ def phase_tier4(gen) -> dict:
         warmup=1)))
     qr_ms = float(np.median(timing.time_cuda(
         lambda: torch.linalg.qr(a), reps=4, warmup=1)))
-    bs, L, _ = tsqr_mod.plan_tree(M_MAIN, N, pk.max_leaf_rows(N),
-                                  tsqr_mod.DEFAULT_FANIN)
     print(json.dumps({
         "tier4_path": f"qr_auto_fused({M_MAIN}x{N} f32, column {ZERO_COL} "
                       f"zeroed, {MODE})",
         "tier": info["tier"], "orthogonality": orth, "residual": res,
         "launches": counts, "leaves": [bs, L, N],
-        "fanin": tsqr_mod.DEFAULT_FANIN,
+        "fanin": tsqr_mod.DEFAULT_FANIN, "inner_levels": levels,
+        "inner_fanin": tsqr_mod.inner_route(None, N,
+                                            tsqr_mod.DEFAULT_FANIN)[1],
         "ladder_ms_median": float(np.median(ladder)), "ladder_ms": ladder,
         "blockqr_reorth_ms": blockqr_ms, "one_tree_ms": tree_ms,
         "one_tree_r_only_ms": tree_r_ms,

@@ -476,8 +476,9 @@ def test_tsqr_on_the_wide_leaf_matches_cpu(card, mode):
         -1, 1, (1 << 16, 256)).astype(np.float32))
     launches = trace.counts("launches.")["panel_qr_wide"]
     q, r = tsqr_tpu_torch.tsqr(a.to(card), mode)
-    # one leaf call
-    assert trace.counts("launches.")["panel_qr_wide"] == launches + 1
+    # one leaf call (64 leaves of 1024 rows), then one a level of inner
+    # nodes at fan-in 4, (1024, 256) nodes: 16, 4, 1
+    assert trace.counts("launches.")["panel_qr_wide"] == launches + 4
     q0, r0 = tsqr_tpu_torch.tsqr(a, mode, device="cpu")
     # the same tree on the same leaves, the kernel against its plain
     # version: float32 grade
@@ -502,6 +503,32 @@ def test_tsqr_gradient_on_the_wide_leaf_matches_cpu(card):
     assert _rel(g_card.cpu(), g_cpu) <= 1e-5
 
 
+@pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor"])
+def test_tsqr_inner_nodes_on_card_match_cpu(card, mode):
+    """The inner nodes on the panel kernel against the CPU's route, the
+    kernel's plain version, on the same tree: 64 leaves of 128 rows, six
+    levels of (256, 128) nodes at fan-in 2, each level's Q and the
+    factors at float32 grade."""
+    from tsqr_tpu_torch.core import tsqr
+    a = torch.from_numpy(np.random.default_rng(14).uniform(
+        -1, 1, (8192, N)).astype(np.float32))
+    launches = trace.counts("launches.")["panel_qr"]
+    inner = trace.counts("tsqr.inner.")
+    q, r, levels = tsqr.tsqr(a.to(card), mode, collect_level_q=True)
+    assert trace.counts("launches.")["panel_qr"] == launches + 7
+    assert trace.counts("tsqr.inner.") - inner == {"kernel": 6}
+    q0, r0, levels0 = tsqr.tsqr(a, mode, collect_level_q=True,
+                                device="cpu")
+    assert [tuple(x.shape) for x in levels] == [
+        (64, 128, N)] + [(32 >> k, 256, N) for k in range(6)]
+    assert [x.shape for x in levels] == [x.shape for x in levels0]
+    for lv, lv0 in zip(levels[1:], levels0[1:]):
+        assert _rel(lv.cpu(), lv0) <= 1e-5
+    assert _rel(r.cpu(), r0) <= 1e-5 and _rel(q.cpu(), q0) <= 1e-5
+    assert validation.orthogonality_accurate(q) < 1e-5
+    assert validation.residual_accurate(a.to(card), q, r) < 1e-5
+
+
 def test_ladder_tiers_on_card(card):
     for kappa, want in ((1, 1), (1e3, 2), (2 ** 18, 3), (0, 4)):
         a_np = (np.random.default_rng(3).uniform(-1, 1, (8192, N)).astype(
@@ -511,10 +538,15 @@ def test_ladder_tiers_on_card(card):
             a_np[:, 33] = 0.0  # a zero column defeats every Gram tier
         a = torch.from_numpy(a_np).to(card)
         launches = trace.counts("launches.")["panel_qr"]
+        inner = trace.counts("tsqr.inner.")
         q, r, info = auto.qr_auto_fused(a, "bf16x6_cor", return_info=True)
         assert info["tier"] == want
-        if want == 4:  # two trees (CGS2), one leaf launch each
-            assert trace.counts("launches.")["panel_qr"] == launches + 2
+        if want == 4:
+            # two trees (CGS2), each one leaf launch (64 leaves of 128
+            # rows) and one a level of (256, 128) inner nodes at fan-in 2:
+            # 32, 16, 8, 4, 2, 1
+            assert trace.counts("launches.")["panel_qr"] == launches + 14
+            assert trace.counts("tsqr.inner.") - inner == {"kernel": 12}
         assert validation.orthogonality_accurate(q) < 1e-5
         assert validation.residual_accurate(a, q, r) < 1e-5
 
@@ -651,7 +683,9 @@ def test_ablate_no_panel_launches_no_panel_kernel(card):
     torch.cuda.synchronize()
     assert trace.counts("launches.")["panel_qr"] == launches
     blockqr.qr(a, _ablate="no_project")
-    assert trace.counts("launches.")["panel_qr"] == launches + 2
+    # two 128-wide panels, each a tree of one leaf launch and six levels
+    # of inner nodes
+    assert trace.counts("launches.")["panel_qr"] == launches + 14
 
 
 # ---- core/ooc.py and models/ on the card against the CPU ------------------

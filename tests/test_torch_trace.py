@@ -116,7 +116,7 @@ def test_tier_histogram_and_the_tree_spans(zero_column, tier):
     assert inside == ["blockqr"] + ["tsqr.tree", "tsqr.leaves",
                                     "tsqr.level", "tsqr.q_build"] * 2
     level = next(s for s in col.spans if s.name == "tsqr.level")
-    assert level.attrs == {"batch": 1}
+    assert level.attrs == {"batch": 1, "fanin": 8, "impl": "pallas_sb"}
     sites = {s.attrs["site"] for s in col.spans if s.name == "sync"}
     assert sites == {"tier1_gate", "tier2_gate", "tier3_gate", "iter_loop"}
 

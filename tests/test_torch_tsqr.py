@@ -1,6 +1,8 @@
 """The port's TSQR tree and BlockQR against the JAX package's (its jnp
 route), on the same numpy inputs, all on the CPU."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,8 +10,10 @@ import torch
 
 from tsqr_tpu.core import blockqr as jblockqr
 from tsqr_tpu.core import tsqr as jtsqr
+from tsqr_tpu.ops import householder as jhouseholder
 from tsqr_tpu_torch.core import blockqr, tsqr
-from tsqr_tpu_torch.utils import validation
+from tsqr_tpu_torch.ops import householder
+from tsqr_tpu_torch.utils import trace, validation
 
 torch.set_num_threads(2)
 
@@ -67,6 +71,77 @@ def test_tsqr_r_only_and_level_qs_match_jax():
         g = lv64.transpose(1, 2) @ lv64
         assert float((g - torch.eye(N, dtype=torch.float64)).abs().max()) \
             < 1e-5
+
+
+@pytest.mark.parametrize("tree_impl,n,fanin,want", [
+    (None, 16, 4, ("pallas_sb", 4)),     # (64, 16) nodes fit: fan-in kept
+    (None, 64, 8, ("pallas_sb", 8)),
+    (None, 128, 8, ("pallas_sb", 2)),    # 2 n <= 288 < 4 n
+    (None, 256, 8, ("pallas_sb", 4)),    # 4 n <= 1024 rows
+    (None, 512, 8, ("pallas_sb", 2)),
+    (None, 513, 8, ("jnp", 8)),          # past the kernels: Householder
+    (None, 1024, 4, ("jnp", 4)),
+    ("jnp", 128, 8, ("jnp", 8)),         # asked for: the reference's route
+    ("pallas", 128, 8, ("pallas", 2)),
+    ("pallas_sb_interpret", 256, 8, ("pallas_sb_interpret", 4))])
+def test_inner_route_fits_the_node_to_the_panel_kernel(tree_impl, n, fanin,
+                                                       want):
+    assert tsqr.inner_route(tree_impl, n, fanin) == want
+
+
+# (2048, 128) at fan-in 8: 8 leaves of 256 rows; the kernel's inner nodes
+# reduce at fan-in 2 (three levels of (256, 128) nodes), the blocked
+# Householder's at 8 (one (1024, 128) node)
+M128, LEAF128 = 2048, 288
+INNER_ROUTES = {None: ("kernel", [(4, 256, 128), (2, 256, 128),
+                                  (1, 256, 128)]),
+                "jnp": ("householder", [(1, 1024, 128)])}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tree_128():
+    """JAX's jnp tree at fp32, the reference of both modes' trees (both
+    float32 grade): one compile (~5 s) for the four cases."""
+    a = _matrix(M128, 128, 7)
+    return jtsqr.tsqr(jnp.asarray(a), "fp32", leaf_rows=LEAF128, fanin=8,
+                      impl="jnp", collect_level_q=True)
+
+
+@pytest.mark.parametrize("tree_impl", [None, "jnp"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor"])
+def test_tsqr_inner_routes_at_n128_match_jax(mode, tree_impl):
+    """The inner nodes on the panel kernel's route (its plain version on
+    the CPU) and on the blocked Householder, against the JAX package's
+    jnp tree at fp32: level Qs on each route, one count a level, and R
+    in canonical signs at float32 grade (the kernel's tree reduces at
+    another fan-in than JAX's, so Q and R differ in their roundings)."""
+    a = _matrix(M128, 128, 7)
+    route, shapes = INNER_ROUTES[tree_impl]
+    before = trace.counts("tsqr.inner.")
+    with trace.collect() as col:
+        q, r, levels = tsqr.tsqr(torch.from_numpy(a), mode,
+                                 leaf_rows=LEAF128, fanin=8,
+                                 tree_impl=tree_impl, collect_level_q=True,
+                                 device="cpu")
+    assert trace.counts("tsqr.inner.") - before == {route: len(shapes)}
+    impl = "jnp" if tree_impl == "jnp" else "pallas_sb"
+    assert [s.attrs for s in col.spans if s.name == "tsqr.level"] == [
+        {"batch": b, "fanin": L // 128, "impl": impl} for b, L, _ in shapes]
+    assert [tuple(x.shape) for x in levels] == [(8, 256, 128)] + shapes
+    for lv in levels:  # every level's Q tiles are orthonormal
+        lv64 = lv.double()
+        g = lv64.transpose(1, 2) @ lv64
+        assert float((g - torch.eye(128, dtype=torch.float64)).abs().max()) \
+            < 1e-5
+    qj, rj, levels_j = _jax_tree_128()
+    if tree_impl == "jnp":  # the reference's tree, level for level
+        assert [tuple(x.shape) for x in levels_j] == [(8, 256, 128)] + shapes
+        assert _rel(r, rj) <= 1e-5 and _rel(q, qj) <= 1e-5
+    _, rs = householder.qr_sign_normalize(q, r)
+    _, rjs = jhouseholder.qr_sign_normalize(qj, rj)
+    assert _rel(rs, rjs) <= 1e-5
+    assert validation.orthogonality(q) < 1e-6
+    assert validation.residual(a, q, r) < 1e-6
 
 
 def test_tsqr_sequential_chunks_give_the_same_factors():

@@ -13,8 +13,12 @@ n = 512, the JAX package's panel kernel's edge) and the blocked
 Householder of ``ops.householder`` past it (the JAX package's default
 leaf at every n), unless the caller asks for one.  The kernel returns
 Q^T (B, n, L); the tree keeps it as it is and reads it through a
-transposed view in the backward product.  The inner nodes, (fanin n, n)
-tiles, use the blocked Householder, as in the reference.
+transposed view in the backward product.  The inner nodes take the same
+panel kernel up to n = 512, at the largest fan-in whose (f n, n) node it
+holds (:func:`inner_route`: 2 at n = 128, 8 at n <= 64), and the blocked
+Householder at ``fanin`` past it, or wherever the caller asks for
+``tree_impl="jnp"`` (the reference's inner route).  The backward drops
+each level's Q once its product has read it.
 """
 
 from __future__ import annotations
@@ -70,6 +74,25 @@ def leaf_impl(impl: str | None, n: int) -> str:
     if impl in _KERNEL_IMPLS + _PLAIN_IMPLS and n > PANEL_SB_N_MAX:
         return "jnp"
     return impl
+
+
+def inner_route(tree_impl: str | None, n: int, fanin: int) -> tuple[str, int]:
+    """The inner nodes' batched QR and fan-in at width n: ``tree_impl``
+    read as :func:`leaf_impl` reads ``impl`` (None is the panel kernel up
+    to ``PANEL_SB_N_MAX``, the blocked Householder past it).  A panel
+    route reduces at the largest power of two f <= ``fanin`` whose
+    (f n, n) node the kernel holds, f n <= ``panel_kernel.leaf_rows(n)``
+    (f = 2 at n = 128, 4 at n = 256, 2 at n = 512, 8 at n <= 64 with
+    fan-in 8); the blocked Householder reduces at ``fanin``.  ``fanin``
+    is a power of two, so f divides every level of a ``plan_tree``
+    tree."""
+    impl = leaf_impl(tree_impl, n)
+    if impl not in _KERNEL_IMPLS + _PLAIN_IMPLS:
+        return impl, fanin
+    f, rows = fanin, panel_kernel.leaf_rows(n)
+    while f > 2 and f * n > rows:
+        f //= 2
+    return impl, f
 
 
 def default_leaf_rows(n: int, impl: str | None = None) -> int:
@@ -161,7 +184,7 @@ def tsqr(a: Tensor,
          block: int = DEFAULT_BLOCK,
          collect_level_q: bool = False,
          want_q: bool = True,
-         tree_impl: str = "jnp",
+         tree_impl: str | None = None,
          seq_chunks: int | None = None,
          device=None):
     """Thin QR of a tall-skinny (m, n) matrix: returns (Q (m, n),
@@ -175,18 +198,26 @@ def tsqr(a: Tensor,
       leaf_rows: target leaf height; None is the panel kernel's leaf at
         this n (``panel_kernel.leaf_rows``) for the kernel leaf, else
         ``DEFAULT_LEAF_ROWS`` (:func:`default_leaf_rows`).
-      fanin: tree fan-in (a power of two).
+      fanin: tree fan-in (a power of two): the leaf count is a power of
+        it (:func:`plan_tree`), and the blocked Householder's inner nodes
+        reduce at it; the panel kernel's reduce at the largest power of
+        two up to it whose node the kernel holds (:func:`inner_route`).
       leaf_qr: optional override of the leaf's batched QR,
         (B, L, n) -> (Q, R).
       impl: the leaf's batched QR (see :func:`_make_batched_qr` and
         :func:`leaf_impl`); None is the panel kernel ("pallas_sb") for
         n <= 512, the blocked Householder ("jnp") past it.
-      block: W-Y block width of the blocked Householder (the inner nodes,
-        and a "jnp" leaf).
+      block: W-Y block width of the blocked Householder (a "jnp" leaf or
+        inner node); the panel kernel's block is its own 16 columns.
       collect_level_q: also return the per-level Q batches:
         (q, r, [level Qs]).
       want_q: False skips the backward Q reconstruction: (None, R).
-      tree_impl: batched QR of the inner nodes (default "jnp").
+      tree_impl: batched QR of the inner nodes, read as ``impl``: None
+        is the panel kernel for n <= 512 (its plain version on a CPU
+        tensor) at :func:`inner_route`'s fan-in, the blocked Householder
+        past it; "jnp" is the blocked Householder at ``fanin``, the
+        reference's route.  Each level counts its route in
+        ``tsqr.inner.kernel`` or ``tsqr.inner.householder``.
       seq_chunks: sequential leaf-chunk count for the leaf QR and the
         layer-0 backward product; None picks 1 below LEAF_SEQ_THRESHOLD
         leaf elements, else enough to keep each chunk near
@@ -206,7 +237,10 @@ def tsqr(a: Tensor,
                          else DEFAULT_LEAF_ROWS)
         if leaf_qr is None:
             leaf_qr = _make_batched_qr(policy, impl, block)
+        tree_impl, tree_fanin = inner_route(tree_impl, n, fanin)
         batched_qr = _make_batched_qr(policy, tree_impl, block)
+        route = ("tsqr.inner.householder" if tree_impl == "jnp"
+                 else "tsqr.inner.kernel")
         io, work = policy.io_dtype, policy.work_dtype
 
         bs, L, m_pad = plan_tree(m, n, leaf_rows, fanin)
@@ -237,10 +271,12 @@ def tsqr(a: Tensor,
         widths: list[int] = []
         while r.shape[0] > 1:
             b = r.shape[0]
-            f = min(fanin, b)
-            with trace.span("tsqr.level", batch=b // f):
+            f = min(tree_fanin, b)
+            with trace.span("tsqr.level", batch=b // f, fanin=f,
+                            impl=tree_impl):
                 qk, r = batched_qr(r.reshape(b // f, f * n, n))
                 qs.append(qk.to(work))
+            trace.count(route)
             widths.append(f)
         r_out = torch.triu(r[0])
 
@@ -250,18 +286,21 @@ def tsqr(a: Tensor,
                 else (None, r_only)
 
         # ---- backward: Q reconstruction down the tree ----
+        levels = [torch.cat(q0)] + qs if collect_level_q else None
         with trace.span("tsqr.q_build"):
-            # c starts as the root Q cut into per-child (n, n) blocks
-            c = qs[-1].to(torch.float32).reshape(widths[-1], n, n)
-            for qk, f in zip(reversed(qs[:-1]), reversed(widths[:-1])):
-                prod = mm(qk.to(torch.float32), c)           # (bk, f n, n)
-                c = prod.reshape(prod.shape[0] * f, n, n)
+            # c starts as the root Q cut into per-child (n, n) blocks; each
+            # level's Q is dropped once its product has read it, so the
+            # layer-0 product runs beside c and the leaves' Q alone
+            c = qs.pop().to(torch.float32).reshape(widths.pop(), n, n)
+            while qs:
+                prod = mm(qs.pop().to(torch.float32), c)  # (bk, f n, n)
+                c = prod.reshape(prod.shape[0] * widths.pop(), n, n)
             parts = [mm(qc.to(torch.float32), cc)          # (bs / seq, L, n)
                      for qc, cc in zip(q0, c.reshape(seq, bs // seq, n, n))]
             q = parts[0] if seq == 1 else torch.cat(parts)
             q = q.reshape(m_pad, n)[:m]
         if collect_level_q:
-            return q.to(io), r_out.to(io), [torch.cat(q0)] + qs
+            return q.to(io), r_out.to(io), levels
         return q.to(io), r_out.to(io)
 
 

@@ -1,10 +1,14 @@
-"""Householder panel QR in plain PyTorch: the TSQR tree's inner-node QR.
+"""Householder panel QR in plain PyTorch: the TSQR tree's inner-node QR
+past the panel kernel's width (n > 512) or on request.
 
 Counterpart of ``tsqr_tpu/ops/householder.py``.  Every function takes a
 (..., m, n) panel and factors each panel of the leading axes at once (the
 reference's ``vmap``).  ``mm`` routes the reflector products through a
 mode's matmul, as in the reference; these functions are the tree's
-``tree_impl="jnp"`` path, not the plain version of a kernel.
+``tree_impl="jnp"`` route (the reference's, and ``tsqr``'s default past
+n = 512, where the leaf too is this QR), the root of ``parallel/dtsqr``'s
+cross-rank tree and ``ops/panel_qr``'s façade, not the plain version of a
+kernel.
 
 Two strategies, as in the reference: ``householder_qr`` (one reflector
 at a time, rank-1 updates) and ``blocked_householder_qr`` (compact WY

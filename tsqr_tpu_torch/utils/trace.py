@@ -19,7 +19,9 @@ its layer boundaries:
 - ``blockqr``: one ``core.blockqr.qr`` call;
 - ``tsqr.tree``: one ``core.tsqr.tsqr`` call; inside it ``tsqr.leaves``
   (the leaves' batched QR), ``tsqr.level`` (one level of inner nodes,
-  attr batch: the nodes) and ``tsqr.q_build`` (Q down the tree).
+  attrs batch: the nodes, fanin: the node's stacked R factors, impl:
+  its batched QR, "pallas_sb" for the panel kernel or "jnp" for the
+  blocked Householder) and ``tsqr.q_build`` (Q down the tree).
 
 **Collecting.** ::
 
@@ -55,6 +57,9 @@ interval launched it.
   ``read_reduce``, ``read_reduce_sum``, ``copy``);
 - ``ladder.tier<k>``: ``qr_auto_fused`` calls that ended at tier k, the
   ladder's histogram: a shift toward tier 4 is inputs losing rank;
+- ``tsqr.inner.kernel``, ``tsqr.inner.householder``: levels of a TSQR
+  tree's inner nodes, one count a level, by route: the panel kernel (its
+  plain version on a CPU tensor) or the blocked Householder;
 - ``sync.<site>``: host reads of device values at each site.
 """
 
