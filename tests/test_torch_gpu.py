@@ -487,6 +487,37 @@ def test_tsqr_on_the_wide_leaf_matches_cpu(card, mode):
     assert validation.residual_accurate(a.to(card), q, r) < 1e-5
 
 
+def test_tall256_call_on_card_passes_the_cell_limits(card):
+    """The benchmark's tall256 call, ``tsqr(a, "bf16x6_cor")`` with every
+    other argument at its default, at (2^16, 256): the plain float64
+    reference (``qrbench/reference.py``) judges it within the cell's
+    limits; the leaves and each level are one wide launch, each a
+    ``panel`` span."""
+    import json
+    from pathlib import Path
+
+    import tsqr_tpu_torch
+    from qrbench import reference
+    limits = json.loads((Path(__file__).resolve().parents[1] / "qrbench"
+                         / "limits" / "tall256.well.json").read_text())
+    gen = torch.Generator(card)
+    gen.manual_seed(17)
+    a = torch.empty(1 << 16, 256, device=card).uniform_(-1, 1,
+                                                        generator=gen)
+    launches = trace.counts("launches.")["panel_qr_wide"]
+    with trace.collect() as col:
+        q, r = tsqr_tpu_torch.tsqr(a, "bf16x6_cor")
+    levels = [s.attrs["batch"] for s in col.spans if s.name == "tsqr.level"]
+    panels = [s.attrs for s in col.spans if s.name == "panel"]
+    assert levels == [16, 4, 1]
+    assert trace.counts("launches.")["panel_qr_wide"] - launches \
+        == 1 + len(levels) == len(panels)
+    assert panels == [{"kernel": "panel_wide", "batch": b, "L": 1024,
+                       "n": 256} for b in [64] + levels]
+    got = reference.judge(a, q, r)
+    assert all(got[k] <= limits[k] for k in limits), (got, limits)
+
+
 def test_tsqr_gradient_on_the_wide_leaf_matches_cpu(card):
     import tsqr_tpu_torch
     rng = np.random.default_rng(13)

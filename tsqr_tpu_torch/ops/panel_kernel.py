@@ -284,11 +284,15 @@ def panel_qr_batched(a: Tensor, mode="fp32") -> tuple[Tensor, Tensor]:
     A CUDA tensor goes through a CUDA kernel (``panel_qr.cu`` for
     n <= ``N_MAX``, ``panel_wide.cu`` up to ``WIDE_N_MAX``), which raises
     for the shapes it does not take; a CPU tensor through
-    :func:`panel_qr_reference`."""
+    :func:`panel_qr_reference`.  Each call is a ``panel`` span
+    (``utils/trace.py``)."""
     _check(a)
     md = gram_stream._mode(mode)
-    if a.device.type == "cpu":
-        return panel_qr_reference(a, md.value)
-    if a.device.type != "cuda":
-        raise ValueError(f"panel QR runs on cuda or cpu, got {a.device}")
-    return _panel_kernel(a.to(torch.float32), md)
+    B, L, n = a.shape
+    with trace.span("panel", kernel="panel_qr" if n <= N_MAX
+                    else "panel_wide", batch=B, L=L, n=n):
+        if a.device.type == "cpu":
+            return panel_qr_reference(a, md.value)
+        if a.device.type != "cuda":
+            raise ValueError(f"panel QR runs on cuda or cpu, got {a.device}")
+        return _panel_kernel(a.to(torch.float32), md)

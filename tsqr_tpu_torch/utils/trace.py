@@ -21,7 +21,11 @@ its layer boundaries:
   (the leaves' batched QR), ``tsqr.level`` (one level of inner nodes,
   attrs batch: the nodes, fanin: the node's stacked R factors, impl:
   its batched QR, "pallas_sb" for the panel kernel or "jnp" for the
-  blocked Householder) and ``tsqr.q_build`` (Q down the tree).
+  blocked Householder) and ``tsqr.q_build`` (Q down the tree);
+- ``panel``: one ``ops.panel_kernel.panel_qr_batched`` call, on the card
+  or through its plain version (attrs kernel: "panel_qr" for n <= 128,
+  "panel_wide" past it; batch, L, n: the (batch, L, n) tiles); the
+  leaves' and each level's batched QR on the panel route.
 
 **Collecting.** ::
 
