@@ -142,16 +142,20 @@ RSVD_TOL = 1e-4      # a rank-200 input recovered at rank 200 (+8)
 PANEL_TOL = {"fp32": 1e-5, "bf16x6_cor": 1e-5, "bf16x3_cor": 1e-4}
 PANEL_CASES = ((264, 256, 128), (64, 256, 64), (33, 200, 50))
 # the panel_wide phase: the wide panel kernel (128 < n <= 512) against its
-# plain version in every mode at these widths, L in {n, 2n, L_WIDE_MAX},
-# with a zero column and zero rows, to tests/test_torch_gpu.py's
-# PANEL_MODES (the one-part bf16 modes at their own grade: a changed
-# float32 sum can round a later split differently), both factors in
-# canonical signs (``canonical``); then tsqr on the
-# wide leaf at full width (1 GiB of A each), cca 256 wide and BlockQR
-# with 256-wide panels
-WIDE_PANEL_NS = (136, 256, 384, 512)
+# plain version in every mode at these widths (the last 64-column panel 8
+# wide at 136 and 200), L in {n, 2n, L_WIDE_MAX}, each case its own
+# seeded inputs, with a zero column and zero rows, to
+# tests/test_torch_gpu.py's PANEL_MODES, both factors in canonical signs
+# (``canonical``); the one-part bf16 modes (ONE_PART) hold R, the
+# orthogonality and the residual to their grade but not Q^T to the plain
+# version's: at one part a changed float32 sum rounds a later split
+# differently, and a square tile's last columns of Q follow that order;
+# then tsqr on the wide leaf at full width (1 GiB of A each), cca 256 wide
+# and BlockQR with 256-wide panels
+WIDE_PANEL_NS = (136, 200, 256, 384, 512)
 WIDE_PANEL_TOL = {"fp32": 1e-5, "bf16x6_cor": 1e-5, "bf16x3_cor": 1e-4,
                   "bf16x3_nocor": 1e-4, "bf16": 5e-2, "bf16_nocor": 5e-2}
+ONE_PART = ("bf16", "bf16_nocor")
 WIDE_PANEL_PATHS = ((1 << 20, 256), (1 << 19, 512))
 # leaf heights at (2^20, 256) beside the default's (fanin 8: L = 256 for
 # every target from 2n to L_WIDE_MAX): (leaf_rows, fanin)
@@ -428,14 +432,17 @@ def compare_panel(a, mode, what, tols=PANEL_TOL, signs=False) -> float:
     the max abs error over Q^T and R.  With ``signs``, both in canonical
     form (``canonical``): a pivot within the mode's rounding of 0 takes
     either sign in two summation orders, each the convention's, and
-    flips its column of Q and row of R."""
+    flips its column of Q and row of R.  A ``ONE_PART`` mode holds R to
+    the plain version's and Q by its orthogonality and the residual."""
     qt, r = pk.panel_qr_batched(a, mode)
     qt0, r0 = pk.panel_qr_reference(a, mode)
     torch.cuda.synchronize()
     if signs:
         (qt, r), (qt0, r0) = canonical(qt, r), canonical(qt0, r0)
     tol = tols[mode]
-    for name, x, y in (("R", r, r0), ("Q^T", qt, qt0)):
+    pairs = (("R", r, r0),) + (() if mode in ONE_PART
+                               else (("Q^T", qt, qt0),))
+    for name, x, y in pairs:
         e = rel(x, y)
         if not e <= tol:
             raise AssertionError(f"{what}: rel err of {name} {e:.3e} > {tol:g}")
@@ -470,14 +477,17 @@ def phase_panel_vs_plain(gen) -> None:
           "column and zero rows ok", flush=True)
 
 
-def wide_panel_checks(gen) -> dict:
+def wide_panel_checks() -> dict:
     """The wide panel kernel against its plain version: every mode, n in
     WIDE_PANEL_NS, L in {n, 2n, L_WIDE_MAX}, three tiles with a zero
     column (R_jj = 0) and, where L > n, seven zero rows below every pivot
-    (exactly zero Q rows); the max abs error per mode."""
+    (exactly zero Q rows), drawn from a generator of the case's own, so
+    that another width leaves the other cases' inputs as they were; the
+    max abs error per mode."""
     errs = {md: 0.0 for md in WIDE_PANEL_TOL}
     for n in WIDE_PANEL_NS:
         for L in sorted({n, min(2 * n, pk.L_WIDE_MAX), pk.L_WIDE_MAX}):
+            gen = torch.Generator(device="cuda").manual_seed((n << 16) + L)
             a = torch.rand(3, L, n, device="cuda", generator=gen) * 2 - 1
             a[:, :, n // 3] = 0.0
             z = L - 7 if L - 7 >= n else L
@@ -485,14 +495,17 @@ def wide_panel_checks(gen) -> dict:
             for mode in WIDE_PANEL_TOL:
                 what = f"panel_wide (3, {L}, {n}) {mode}"
                 launches = trace.counts("launches.")["panel_qr_wide"]
+                outer = trace.counts("panel_wide.")["outer_applies"]
                 errs[mode] = max(errs[mode], compare_panel(
                     a, mode, what, WIDE_PANEL_TOL, signs=True))
                 qt, r = pk.panel_qr_batched(a, mode)
                 torch.cuda.synchronize()
                 if (trace.counts("launches.")["panel_qr_wide"]
-                        != launches + 2):
+                        != launches + 2
+                        or trace.counts("panel_wide.")["outer_applies"]
+                        != outer + 2 * pk.wide_outer_applies(n)):
                     raise AssertionError(f"{what}: the wide kernel did not "
-                                         "launch")
+                                         "launch its sequence")
                 if not (bool((qt[:, :, z:] == 0).all())
                         and bool((r[:, n // 3, n // 3] == 0).all())):
                     raise AssertionError(f"{what}: zero rows or the zero "
@@ -535,10 +548,12 @@ def wide_panel_path(m: int, n: int, gen) -> dict:
         torch.cuda.synchronize()
         reset_counts()
         inner = trace.counts("tsqr.inner.")
+        outer = trace.counts("panel_wide.")["outer_applies"]
         q, r = tsqr_tpu_torch.tsqr(a, MODE)
         torch.cuda.synchronize()
         counts = read_counts()
         inner = trace.counts("tsqr.inner.") - inner
+        outer = trace.counts("panel_wide.")["outer_applies"] - outer
     finally:
         householder.blocked_householder_qr = plain_hh
     orth = validation.orthogonality_accurate(q)
@@ -546,12 +561,13 @@ def wide_panel_path(m: int, n: int, gen) -> dict:
     del q, r
     if not (orth < 1e-5 and res < 1e-5
             and counts["panel_qr_wide"] == 1 + levels
+            and outer == (1 + levels) * pk.wide_outer_applies(n)
             and not counts["panel_qr"] and not hh
             and inner == {"kernel": levels}):
         raise AssertionError(f"tsqr ({m}, {n}) on the wide leaf: orth "
                              f"{orth:.2e} residual {res:.2e} launches "
-                             f"{counts} inner levels {inner} Householder "
-                             f"calls {hh}")
+                             f"{counts} 64-column applies {outer} inner "
+                             f"levels {inner} Householder calls {hh}")
     # the gated call warmed the path; the eager leaf's call takes seconds
     ms = timing.time_cuda(lambda: tsqr_tpu_torch.tsqr(a, MODE), reps=2,
                           warmup=0)
@@ -562,7 +578,7 @@ def wide_panel_path(m: int, n: int, gen) -> dict:
            "inner_fanin": tsqr_mod.inner_route(None, n, fanin)[1],
            "inner_levels": levels,
            "orthogonality": orth, "residual": res,
-           "launches": kernel_launches(counts),
+           "launches": kernel_launches(counts), "outer_applies": outer,
            "householder_calls": [list(s) for s in hh],
            "ms_median": float(np.median(ms)), "ms": ms,
            "jnp_leaf_ms_median": float(np.median(jnp_ms)),
@@ -584,7 +600,7 @@ def wide_panel_entry(path: dict) -> dict:
         lambda: pk.panel_qr_batched(leaves, MODE), reps=5, warmup=1)))
     mode_ms = {md: float(np.median(timing.time_cuda(
         lambda md=md: pk.panel_qr_batched(leaves, md), reps=3, warmup=1)))
-        for md in ("fp32", "bf16x3_cor")}
+        for md in WIDE_PANEL_TOL if md != MODE}
     p_ms = float(np.median(timing.time_cuda(
         lambda: pk.panel_qr_reference(leaves, MODE), reps=2, warmup=1)))
     lib_ms = float(np.median(timing.time_cuda(
@@ -602,8 +618,12 @@ def wide_panel_entry(path: dict) -> dict:
             "shapes": f"({bs}, {L}, {n}) f32 {MODE} leaves of tsqr at "
                       f"({WIDE_PANEL_PATHS[0][0]}, {n}); a launch is one "
                       f"call of {pk.wide_kernel_launches(n)} kernel "
-                      "launches; library_ms is batched torch.linalg.qr",
+                      "launches; outer_applies is the counter "
+                      "panel_wide.outer_applies over that tsqr call, as "
+                      "the kernel reported its 64-column applies; "
+                      "library_ms is batched torch.linalg.qr",
             "kernel_launches_a_call": pk.wide_kernel_launches(n),
+            "outer_applies": path["outer_applies"],
             "other_modes_ms": mode_ms}
 
 
@@ -614,7 +634,7 @@ def phase_panel_wide(gen) -> dict:
     with 256-wide panels at (2^18, 512), each gated and counted, and the
     kernel's ``kernels`` entry at the (2^20, 256) leaves."""
     t0 = time.perf_counter()
-    errs = wide_panel_checks(gen)
+    errs = wide_panel_checks()
     t_checks = time.perf_counter() - t0
     paths = [wide_panel_path(m, n, gen) for m, n in WIDE_PANEL_PATHS]
     main = paths[0]

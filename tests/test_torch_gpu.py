@@ -394,7 +394,10 @@ def test_panel_kernel_holds_the_tier4_leaf(card):
     # (256, 128) tiles
     assert panel_kernel.max_leaf_rows(128) >= 256
     a = _tiles(card, 4, 256, 128, seed=8)
+    outer = trace.counts("panel_wide.")["outer_applies"]
     qt, r = panel_kernel.panel_qr_batched(a, "bf16x6_cor")
+    # n = 128 is panel_qr.cu's: no 64-column apply
+    assert trace.counts("panel_wide.")["outer_applies"] == outer
     qt0, r0 = panel_kernel.panel_qr_reference(a, "bf16x6_cor")
     assert _rel(r, r0) <= 1e-5 and _rel(qt, qt0) <= 1e-5
 
@@ -415,7 +418,7 @@ def test_panel_kernel_raises_on_what_it_does_not_take(card):
                                       "bf16x3_cor_emu")
 
 
-WIDE_PANEL_NS = (136, 256, 384, 512)
+WIDE_PANEL_NS = (136, 200, 256, 384, 512)  # the last panel 8 wide at 136, 200
 
 
 def _canonical(qt, r):
@@ -436,8 +439,13 @@ def test_wide_panel_kernel_shapes_and_modes(card, n, rows, mode):
          "max": panel_kernel.L_WIDE_MAX}[rows]
     a = _tiles(card, 3, L, n, seed=n + L)
     launches = trace.counts("launches.")
+    outer = trace.counts("panel_wide.")["outer_applies"]
     qt, r = panel_kernel.panel_qr_batched(a, mode)
     assert trace.counts("launches.") - launches == {"panel_qr_wide": 1}
+    # the 64-column applies: a trailing update a panel but the last, and
+    # the Q build's, a panel each
+    assert (trace.counts("panel_wide.")["outer_applies"] - outer
+            == panel_kernel.wide_outer_applies(n) == 2 * -(-n // 64) - 1)
     qt0, r0 = panel_kernel.panel_qr_reference(a, mode)
     tol = PANEL_MODES[mode]
     (cq, cr), (cq0, cr0) = _canonical(qt, r), _canonical(qt0, r0)
@@ -450,7 +458,7 @@ def test_wide_panel_kernel_shapes_and_modes(card, n, rows, mode):
 
 
 @pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor", "bf16"])
-@pytest.mark.parametrize("L,n", [(300, 136), (1000, 500)])
+@pytest.mark.parametrize("L,n", [(300, 136), (1000, 500), (700, 256)])
 def test_wide_panel_kernel_zero_column_and_zero_rows(card, mode, L, n):
     # L not a multiple of 16: the kernel's padded rows, cut on the way out
     a = _tiles(card, 5, L, n, seed=L)
@@ -505,6 +513,7 @@ def test_tall256_call_on_card_passes_the_cell_limits(card):
     a = torch.empty(1 << 16, 256, device=card).uniform_(-1, 1,
                                                         generator=gen)
     launches = trace.counts("launches.")["panel_qr_wide"]
+    outer = trace.counts("panel_wide.")["outer_applies"]
     with trace.collect() as col:
         q, r = tsqr_tpu_torch.tsqr(a, "bf16x6_cor")
     levels = [s.attrs["batch"] for s in col.spans if s.name == "tsqr.level"]
@@ -514,6 +523,9 @@ def test_tall256_call_on_card_passes_the_cell_limits(card):
         == 1 + len(levels) == len(panels)
     assert panels == [{"kernel": "panel_wide", "batch": b, "L": 1024,
                        "n": 256} for b in [64] + levels]
+    # 3 trailing updates and 4 Q-build panels a wide call at n = 256
+    assert (trace.counts("panel_wide.")["outer_applies"] - outer
+            == 7 * len(panels))
     got = reference.judge(a, q, r)
     assert all(got[k] <= limits[k] for k in limits), (got, limits)
 

@@ -101,11 +101,33 @@ def test_leaf_rule_and_height_past_128():
             and panel_kernel.L_WIDE_MAX == 1024)
     with pytest.raises(ValueError, match="n <= 512"):
         panel_kernel.leaf_rows(513)
-    # load, a chain a block, a trailing update a block but the last, R,
-    # a Q update a block
-    assert panel_kernel.wide_kernel_launches(256) == 49
-    assert panel_kernel.wide_kernel_launches(512) == 97
-    assert panel_kernel.wide_kernel_launches(136) == 28
+    # load; a chain a block and an in-panel update a block but each
+    # panel's last; a panel's Y and T and its wide update but the last
+    # panel's; R; a panel's Y and its Q update a panel
+    assert panel_kernel.wide_kernel_launches(256) == 44
+    assert panel_kernel.wide_kernel_launches(512) == 88
+    assert panel_kernel.wide_kernel_launches(136) == 27
+
+
+@pytest.mark.parametrize("n,launches,outer", [(136, 27, 5), (200, 38, 7),
+                                               (256, 44, 7), (512, 88, 15)])
+def test_wide_launch_and_outer_apply_counts(n, launches, outer):
+    # the sequence panel_wide_launch walks: the last panel is 8 columns
+    # wide at n = 136 and n = 200, and holds one block there
+    seq = ["load"]
+    panels = range(0, n, panel_kernel.PANEL)
+    for p0 in panels:
+        p1 = min(p0 + panel_kernel.PANEL, n)
+        for c0 in range(p0, p1, panel_kernel.BLOCK):
+            seq.append("factor")
+            if c0 + panel_kernel.BLOCK < p1:
+                seq.append("apply")
+        if p1 < n:
+            seq += ["panel", "outer"]
+    seq.append("r")
+    seq += ["panel", "outer"] * len(panels)
+    assert len(seq) == panel_kernel.wide_kernel_launches(n) == launches
+    assert seq.count("outer") == panel_kernel.wide_outer_applies(n) == outer
 
 
 def test_wide_wrapper_checks_shapes_before_any_launch():

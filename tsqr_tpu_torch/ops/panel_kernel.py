@@ -14,10 +14,13 @@ fallback.  Two kernels, by width:
   chain).  Launches counted in the counter ``launches.panel_qr``
   (``utils/trace.py``).
 * ``N_MAX`` < n <= ``WIDE_N_MAX`` (512, the JAX kernel's edge):
-  ``csrc/panel_wide.cu``, the tile in device memory and one 16-column
-  block at a time on chip; n <= L <= ``L_WIDE_MAX`` (four rows a thread
-  in the column chain).  Calls counted in ``launches.panel_qr_wide``,
-  each :func:`wide_kernel_launches` kernel launches.
+  ``csrc/panel_wide.cu``, the tile in device memory, factored one
+  16-column block at a time and updated one ``PANEL`` (64) columns at a
+  time; n <= L <= ``L_WIDE_MAX`` (four rows a thread in the column
+  chain).  Calls counted in ``launches.panel_qr_wide``, each
+  :func:`wide_kernel_launches` kernel launches, of which
+  :func:`wide_outer_applies` are 64-column applies (counted in
+  ``panel_wide.outer_applies``).
 
 Both run W-Y blocks of ``BLOCK`` (16) columns in the modes fp32, bf16,
 bf16_nocor, bf16x3_nocor, bf16x3_cor and bf16x6_cor.  :func:`leaf_rows`
@@ -42,6 +45,8 @@ WIDE_N_MAX = 512       # widest n of panel_wide.cu
 L_WIDE_MAX = 1024      # most rows of panel_wide.cu: four a thread
 WIDE_ROW_PAD = 16      # panel_wide.cu pads its work tile's rows to this
 BLOCK = 16             # columns per W-Y block
+PANEL = 64             # columns per panel of panel_wide.cu: four blocks
+_YS_ROW = 384          # bytes a row of panel_wide.cu's split panel Y
 _THREADS = 256
 L_MAX = 2 * _THREADS   # most rows: two a thread in the column chain
 _SMEM_MAX = 232448     # dynamic shared memory a block may use on sm_90
@@ -94,11 +99,19 @@ def leaf_rows(n: int) -> int:
 
 
 def wide_kernel_launches(n: int) -> int:
-    """Kernel launches of one wide call at width n: the load, a chain and
-    (but the last block) a trailing update a block, R, a Q update a
-    block."""
-    nblk = -(-n // BLOCK)
-    return 2 + 3 * nblk - 1
+    """Kernel launches of one wide call at width n: the load; a chain a
+    block and, but for each panel's last block, its update of the panel's
+    later columns; a panel's Y and T and its update of the columns right
+    of it, but for the last panel; R; a panel's Y and its Q update a panel
+    of the Q build."""
+    return 2 * -(-n // BLOCK) + 3 * -(-n // PANEL)
+
+
+def wide_outer_applies(n: int) -> int:
+    """The 64-column applies of one wide call at width n: the trailing
+    updates of every panel but the last, and the Q build's, a panel
+    each."""
+    return 2 * -(-n // PANEL) - 1
 
 
 def _check(a: Tensor) -> None:
@@ -109,66 +122,113 @@ def _check(a: Tensor) -> None:
         raise ValueError(f"panel QR wants tall tiles, got {tuple(a.shape)}")
 
 
+def _update(x: Tensor, y: Tensor, t: Tensor, lo: int, hi: int,
+            md) -> None:
+    """X[:, :, lo:hi] -= Y (T^T (Y^T X)), the products at the mode, W = T^T
+    (Y^T X) in float32."""
+    rest = x[:, :, lo:hi]
+    w = torch.matmul(t.transpose(1, 2), _dot_mode(y.transpose(1, 2), rest,
+                                                  md))
+    x[:, :, lo:hi] = rest - _dot_mode(y, w, md)
+
+
+def _merge_t(y: Tensor, ts: list[Tensor]) -> Tensor:
+    """The T of a panel from its blocks' T, a block b at a time:
+    Z = (Y_{<b}^T Y_b) T_b, T[:s, b] = -T[:s, :s] Z, all in float32."""
+    width = sum(t.shape[-1] for t in ts)
+    g = torch.matmul(y.transpose(1, 2), y)
+    out = y.new_zeros(y.shape[0], width, width)
+    s = 0
+    for tb in ts:
+        nb = tb.shape[-1]
+        out[:, s:s + nb, s:s + nb] = tb
+        if s:
+            z = torch.matmul(g[:, :s, s:s + nb], tb)
+            out[:, :s, s:s + nb] = -torch.matmul(out[:, :s, :s], z)
+        s += nb
+    return out
+
+
+def _chain(x: Tensor, y_all: Tensor, c0: int, nb: int) -> Tensor:
+    """The column chain of the block of columns c0 .. c0 + nb, in float32:
+    each reflector applied to the block's later columns, R's entries and
+    the reflectors (into ``y_all``) written, the block's T returned."""
+    B, L, _ = x.shape
+    rows = torch.arange(L, device=x.device)
+    t = torch.zeros(B, nb, nb, dtype=torch.float32, device=x.device)
+    for k in range(nb):
+        j = c0 + k
+        col = torch.where(rows >= j, x[:, :, j], 0.0)
+        norm2 = torch.sum(col * col, dim=1)
+        norm = torch.sqrt(norm2)
+        xj = x[:, j, j]
+        sign = torch.where(xj >= 0, 1.0, -1.0)
+        vnorm2 = norm2 + 2.0 * sign * norm * xj + norm2
+        beta = torch.where(vnorm2 > 1e-30, 2.0 / vnorm2,
+                           torch.zeros_like(vnorm2))
+        sn = sign * norm
+        v = col.clone()
+        v[:, j] = xj + sn
+        # the dots D_c of the column with the block's columns (rows >= j);
+        # v's dot with column c is D_c + sign ||x|| x_jc, as the kernel
+        # forms it from one reduction a column
+        blk = x[:, :, c0:c0 + nb]
+        vdot = (torch.einsum("bi,bic->bc", col, blk)
+                + sn[:, None] * x[:, j, c0:c0 + nb])
+        if j + 1 < c0 + nb:  # rank-1 update of the block's later columns
+            w = vdot[:, k + 1:]
+            x[:, :, j + 1:c0 + nb] = x[:, :, j + 1:c0 + nb] - (
+                beta[:, None] * w)[:, None] * v[:, :, None]
+        if k > 0:  # T[:k, k] = -beta T[:k, :k] (Y^T v)
+            t[:, :k, k] = -beta[:, None] * torch.einsum(
+                "bqp,bp->bq", t[:, :k, :k], vdot[:, :k])
+        t[:, k, k] = beta
+        y_all[:, :, j] = v
+        x[:, j, j] = -sign * norm
+    return t
+
+
 def panel_qr_reference(a: Tensor, mode="fp32",
                        block: int = BLOCK) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version of the kernel, on A's device, batched over
+    """Plain PyTorch version of the kernels, on A's device, batched over
     the tiles: the same compact-WY algorithm (B3's), the same float32
-    column work and the same block products at the mode.  Returns
-    (Q^T (B, n, L), R (B, n, n)) in float32."""
+    column work and the same block products at the mode, blocked as each
+    kernel blocks.  For n <= ``N_MAX`` (``panel_qr.cu``) each block
+    updates every column right of it and the Q build runs by blocks.
+    Past it (``panel_wide.cu``) the blocks group into panels of
+    ``PANEL`` columns: a block updates only its panel's later columns,
+    the panel's T is merged from its blocks' (:func:`_merge_t`) and the
+    panel updates the columns right of it in one product, and the Q
+    build runs by panels.  Returns (Q^T (B, n, L), R (B, n, n)) in
+    float32."""
     _check(a)
     md = gram_stream._mode(mode)
     B, L, n = a.shape
     x = a.to(torch.float32).clone()
-    dev = x.device
-    rows = torch.arange(L, device=dev)
-    y_all = torch.zeros(B, L, n, dtype=torch.float32, device=dev)
-    ts = []
-    for c0 in range(0, n, block):
-        nb = min(block, n - c0)
-        t = torch.zeros(B, nb, nb, dtype=torch.float32, device=dev)
-        for k in range(nb):
-            j = c0 + k
-            col = torch.where(rows >= j, x[:, :, j], 0.0)
-            norm2 = torch.sum(col * col, dim=1)
-            norm = torch.sqrt(norm2)
-            xj = x[:, j, j]
-            sign = torch.where(xj >= 0, 1.0, -1.0)
-            vnorm2 = norm2 + 2.0 * sign * norm * xj + norm2
-            beta = torch.where(vnorm2 > 1e-30, 2.0 / vnorm2,
-                               torch.zeros_like(vnorm2))
-            sn = sign * norm
-            v = col.clone()
-            v[:, j] = xj + sn
-            # the dots D_c of the column with the block's columns (rows
-            # >= j); v's dot with column c is D_c + sign ||x|| x_jc, as the
-            # kernel forms it from one reduction a column
-            blk = x[:, :, c0:c0 + nb]
-            vdot = (torch.einsum("bi,bic->bc", col, blk)
-                    + sn[:, None] * x[:, j, c0:c0 + nb])
-            if j + 1 < c0 + nb:  # rank-1 update of the block's later columns
-                w = vdot[:, k + 1:]
-                x[:, :, j + 1:c0 + nb] = x[:, :, j + 1:c0 + nb] - (
-                    beta[:, None] * w)[:, None] * v[:, :, None]
-            if k > 0:  # T[:k, k] = -beta T[:k, :k] (Y^T v)
-                t[:, :k, k] = -beta[:, None] * torch.einsum(
-                    "bqp,bp->bq", t[:, :k, :k], vdot[:, :k])
-            t[:, k, k] = beta
-            y_all[:, :, j] = v
-            x[:, j, j] = -sign * norm
-        ts.append(t)
-        if c0 + nb < n:  # trailing update X -= Y (T^T (Y^T X))
-            yb = y_all[:, :, c0:c0 + nb]
-            rest = x[:, :, c0 + nb:]
-            p = _dot_mode(yb.transpose(1, 2), rest, md)
-            w2 = torch.matmul(t.transpose(1, 2), p)
-            x[:, :, c0 + nb:] = rest - _dot_mode(yb, w2, md)
+    y_all = torch.zeros(B, L, n, dtype=torch.float32, device=x.device)
+    width = PANEL if n > N_MAX else n
+    units = []  # (first column, T) of the Q build's reflectors
+    for p0 in range(0, n, width):
+        p1 = min(p0 + width, n)
+        ts = []
+        for c0 in range(p0, p1, block):
+            nb = min(block, p1 - c0)
+            ts.append(_chain(x, y_all, c0, nb))
+            if c0 + nb < p1:  # the block's update of its panel's columns
+                _update(x, y_all[:, :, c0:c0 + nb], ts[-1], c0 + nb, p1, md)
+        if width == n:
+            units.extend(zip(range(p0, p1, block), ts))
+            continue
+        t = _merge_t(y_all[:, :, p0:p1], ts)
+        units.append((p0, t))
+        if p1 < n:  # the panel's update of the columns right of it
+            _update(x, y_all[:, :, p0:p1], t, p1, n, md)
     r = torch.triu(x[:, :n, :])
-    q = torch.eye(L, n, dtype=torch.float32, device=dev).expand(B, L, n)
-    for bi in reversed(range(len(ts))):  # Q -= Y (T (Y^T Q))
-        c0 = bi * block
-        yb = y_all[:, :, c0:c0 + ts[bi].shape[-1]]
+    q = torch.eye(L, n, dtype=torch.float32, device=x.device).expand(B, L, n)
+    for c0, t in reversed(units):  # Q -= Y (T (Y^T Q))
+        yb = y_all[:, :, c0:c0 + t.shape[-1]]
         w = _dot_mode(yb.transpose(1, 2), q, md)
-        q = q - _dot_mode(yb, torch.matmul(ts[bi], w), md)
+        q = q - _dot_mode(yb, torch.matmul(t, w), md)
     return q.transpose(1, 2).contiguous(), r
 
 
@@ -203,22 +263,22 @@ def _wide_lib():
     lib = _build.load("panel_wide")
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.panel_wide_launch.argtypes = [vp] * 7 + [ci, ci, ci, ci, vp]
+        lib.panel_wide_launch.argtypes = ([vp] * 9 + [ci, ci, ci, ci]
+                                          + [ctypes.POINTER(ci), vp])
         lib.panel_wide_launch.restype = ci
-        lib.panel_wide_kernel_launches.argtypes = [ci]
         for f in (lib.panel_wide_n_max, lib.panel_wide_l_max,
-                  lib.panel_wide_block, lib.panel_wide_row_pad,
-                  lib.panel_wide_kernel_launches):
+                  lib.panel_wide_block, lib.panel_wide_panel,
+                  lib.panel_wide_row_pad, lib.panel_wide_ys_row_bytes):
             f.restype = ci
         if (lib.panel_wide_n_max() != WIDE_N_MAX
                 or lib.panel_wide_l_max() != L_WIDE_MAX
                 or lib.panel_wide_block() != BLOCK
+                or lib.panel_wide_panel() != PANEL
                 or lib.panel_wide_row_pad() != WIDE_ROW_PAD
-                or any(lib.panel_wide_kernel_launches(n)
-                       != wide_kernel_launches(n) for n in (136, 256, 512))):
+                or lib.panel_wide_ys_row_bytes() != _YS_ROW):
             raise RuntimeError("panel_wide.cu and panel_kernel.py disagree "
-                               "on WIDE_N_MAX / L_WIDE_MAX / BLOCK / the row "
-                               "padding / the launches a call")
+                               "on WIDE_N_MAX / L_WIDE_MAX / BLOCK / PANEL / "
+                               "the row padding / the split Y's rows")
         lib._typed = True
     return lib
 
@@ -226,27 +286,39 @@ def _wide_lib():
 def _wide_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
     """Launch the wide kernel's sequence on a (B, L, n) float32 batch,
     ``N_MAX`` < n <= ``WIDE_N_MAX``: the work tile, the reflectors'
-    diagonals and the blocks' T are scratch of the call."""
+    diagonals, the blocks' and the panels' T and one panel's split Y are
+    scratch of the call."""
     B, L, n = a.shape
     if L > L_WIDE_MAX:
         raise ValueError(f"the wide panel kernel takes L <= {L_WIDE_MAX} "
                          f"rows at n={n}, got L={L}")
     a = a.contiguous()
     lp = -(-L // WIDE_ROW_PAD) * WIDE_ROW_PAD
-    nblk = -(-n // BLOCK)
+    nblk, npan = -(-n // BLOCK), -(-n // PANEL)
 
     def empty(*shape):
         return torch.empty(*shape, dtype=torch.float32, device=a.device)
     qt, r, x = empty(B, n, L), empty(B, n, n), empty(B, n, lp)
     qw = qt if lp == L else empty(B, n, lp)
     vd, tm = empty(B, nblk * BLOCK), empty(B, nblk, BLOCK, BLOCK)
+    ys, t64 = empty(B, lp, _YS_ROW // 4), empty(B, npan, PANEL, PANEL)
     stream = torch.cuda.current_stream(a.device).cuda_stream
+    issued = (ctypes.c_int * 2)()
     err = _wide_lib().panel_wide_launch(
         a.data_ptr(), qt.data_ptr(), r.data_ptr(), x.data_ptr(),
-        qw.data_ptr(), vd.data_ptr(), tm.data_ptr(), B, L, n,
-        gram_stream._kernel_code(md), stream)
+        qw.data_ptr(), vd.data_ptr(), tm.data_ptr(), ys.data_ptr(),
+        t64.data_ptr(), B, L, n, gram_stream._kernel_code(md), issued,
+        stream)
     gram_stream._raise_on(err, "panel_wide launch")
     trace.count("launches.panel_qr_wide")
+    trace.count("panel_wide.outer_applies", issued[1])
+    if (issued[0], issued[1]) != (wide_kernel_launches(n),
+                                  wide_outer_applies(n)):
+        raise RuntimeError(f"panel_wide.cu launched {issued[0]} kernels, "
+                           f"{issued[1]} of them 64-column applies, at "
+                           f"n={n}; panel_kernel.py counts "
+                           f"{wide_kernel_launches(n)} and "
+                           f"{wide_outer_applies(n)}")
     return qt, r
 
 

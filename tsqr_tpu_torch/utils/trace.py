@@ -59,6 +59,11 @@ interval launched it.
   ``stream_wide_store``, ``stream_wide_split_r``, ``stream_wide_split_x``,
   ``panel_qr``, ``panel_qr_wide`` (calls, each its launch sequence),
   ``read_reduce``, ``read_reduce_sum``, ``copy``);
+- ``panel_wide.outer_applies``: the 64-column reflector applies that
+  ``panel_wide.cu``'s launch sequence reports it issued, added with each
+  call's ``launches.panel_qr_wide`` (7 a call at n = 256; a call whose
+  counts differ from ``panel_kernel.wide_kernel_launches`` and
+  ``wide_outer_applies`` raises);
 - ``ladder.tier<k>``: ``qr_auto_fused`` calls that ended at tier k, the
   ladder's histogram: a shift toward tier 4 is inputs losing rank;
 - ``tsqr.inner.kernel``, ``tsqr.inner.householder``: levels of a TSQR
