@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 import tsqr_tpu_torch
 from tsqr_tpu.core import auto as jauto
 from tsqr_tpu_torch.core import auto
 from tsqr_tpu_torch.utils import latms, trace, validation
 
-torch.set_num_threads(2)
 
 M, N = 4096, 128
 

@@ -14,12 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.core import auto as jauto
 from tsqr_tpu_torch.core import auto
 from tsqr_tpu_torch.harness import bench
 from tsqr_tpu_torch.utils import validation
 
-torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 KEYS = {"metric", "value", "unit", "vs_baseline"}  # bench.py:95-100

@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.core import auto as jauto
 from tsqr_tpu.core import cholqr as jcholqr
 from tsqr_tpu_torch.core import auto, cholqr
 from tsqr_tpu_torch.utils import latms, validation
 
-torch.set_num_threads(2)
 
 SHAPES = [(4096, 64), (2048, 128)]
 

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 import tsqr_tpu
 import tsqr_tpu_torch
 from tsqr_tpu_torch.core import diff
 
-torch.set_num_threads(2)
 
 # same function, two packages: float32 rounding, amplified by kappa(A)
 # (~5 for these uniform inputs) through R^{-1}

@@ -9,13 +9,12 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.harness import flops as jflops
 from tsqr_tpu.harness import mfu as jmfu
 from tsqr_tpu_torch.harness import flops, mfu
 from tsqr_tpu_torch.ops import bw_probe, gram_stream
 from tsqr_tpu_torch.utils import status
-
-torch.set_num_threads(2)
 
 
 def _a(m, n, seed=0):

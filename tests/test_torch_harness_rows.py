@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.core import blockqr as jblockqr
 from tsqr_tpu.harness import accuracy as jaccuracy
 from tsqr_tpu.harness import baseline as jbaseline
@@ -32,7 +33,6 @@ from tsqr_tpu_torch.harness import (accuracy, baseline, compare, cond,
 from tsqr_tpu_torch.utils import (experimental, latms, timing, trace,
                                   validation)
 
-torch.set_num_threads(2)
 
 # per-trial metrics of two QR implementations on one input: the same
 # grade, within this factor of each other

@@ -6,13 +6,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu import modes as jmodes
 from tsqr_tpu.ops import householder as jhh
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.ops import householder
 from tsqr_tpu_torch.utils import validation
 
-torch.set_num_threads(2)
 
 SHAPES = [(96, 24), (128, 32), (64, 16)]
 

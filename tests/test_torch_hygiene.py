@@ -14,6 +14,10 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import threadpoolctl
+import torch
+
+import _torch_threads
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "tsqr_tpu_torch").rglob("*.py")) + [
@@ -110,6 +114,20 @@ def test_port_exports_everything_the_jax_package_exports():
     assert set(tsqr_tpu.models.__all__) <= set(tsqr_tpu_torch.models.__all__)
     for name in tsqr_tpu_torch.models.__all__:
         assert callable(getattr(tsqr_tpu_torch.models, name)), name
+
+
+def test_every_thread_pool_reads_the_test_budget():
+    # the suite's one thread budget (tests/_torch_threads.py): numpy's
+    # OpenBLAS, torch's OpenMP and the OpenBLAS jaxlib's LAPACK calls are
+    # all loaded before the cap and read it; a pool loaded after it would
+    # read the core count and oversubscribe the xdist workers again
+    pools = threadpoolctl.threadpool_info()
+    paths = " ".join(p["filepath"] for p in pools)
+    for lib in ("numpy", "torch", "scipy"):
+        assert f"/{lib}" in paths, (lib, paths)
+    assert all(p["num_threads"] == _torch_threads.THREADS for p in pools), [
+        (p["filepath"], p["num_threads"]) for p in pools]
+    assert torch.get_num_threads() == _torch_threads.THREADS
 
 
 # ---- the models' mesh routes against the JAX package's -------------------

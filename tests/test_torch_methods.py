@@ -3,24 +3,35 @@ non-fused methods, the packed shims, in-place Q and rand_cholqr, against
 the JAX package on the same numpy inputs (its fused methods in interpret
 mode)."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 import tsqr_tpu_torch
 from tsqr_tpu.core import cholqr as jcholqr
 from tsqr_tpu_torch.core import cholqr
 from tsqr_tpu_torch.utils import latms, validation
 
-torch.set_num_threads(2)
+
+@functools.lru_cache(maxsize=None)
+def _made(m, n, kappa, seed):
+    if kappa == 1:
+        a = np.random.default_rng(seed + m + n).uniform(
+            -1, 1, (m, n)).astype(np.float32)
+    else:
+        a = latms.rand_matrix_with_cond(seed + m + n, m, n, kappa)[0]
+    a.setflags(write=False)
+    return a
 
 
 def _matrix(m, n, kappa, seed=0):
-    if kappa == 1:
-        return np.random.default_rng(seed + m + n).uniform(
-            -1, 1, (m, n)).astype(np.float32)
-    return latms.rand_matrix_with_cond(seed + m + n, m, n, kappa)[0]
+    """One input per argument set, made once; each case gets its own
+    copy, since most hand it straight to ``torch.from_numpy``."""
+    return _made(m, n, kappa, seed).copy()
 
 
 def _rel(x, ref) -> float:

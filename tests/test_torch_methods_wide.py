@@ -3,6 +3,7 @@ kernels' range (their plain version here) against the JAX package's
 fused methods in interpret mode, and tsqr and the models built on it
 against the JAX package, on the same numpy inputs."""
 
+import functools
 import importlib
 
 import jax
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 import tsqr_tpu.models as jm
 import tsqr_tpu_torch
 import tsqr_tpu_torch.models as tm
@@ -22,7 +24,6 @@ from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.ops import householder
 from tsqr_tpu_torch.utils import latms, validation
 
-torch.set_num_threads(2)
 
 MODE = "bf16x6_cor"
 TOL = auto._TOL[auto.M(MODE)]
@@ -50,8 +51,13 @@ def _rel(x, ref) -> float:
     return float(np.linalg.norm(x - ref) / np.linalg.norm(ref))
 
 
+@functools.lru_cache(maxsize=None)
 def _matrix(m, n, kappa, seed=0):
-    return latms.rand_matrix_with_cond(seed + m + n, m, n, kappa)[0]
+    """One input per argument set, made once: read-only, so a case copies
+    it before any in-place call."""
+    a = latms.rand_matrix_with_cond(seed + m + n, m, n, kappa)[0]
+    a.setflags(write=False)
+    return a
 
 
 def _run(pkg, a, method, variant, opts, mode=MODE):

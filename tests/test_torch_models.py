@@ -22,13 +22,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 import tsqr_tpu.models as jm
 import tsqr_tpu_torch.models as tm
 from tsqr_tpu.core import cholqr as jcholqr
 from tsqr_tpu_torch.core import auto
 from tsqr_tpu_torch.utils import latms
 
-torch.set_num_threads(2)
 
 # the packages re-export functions under their modules' names
 MODULES = {name: (importlib.import_module(f"tsqr_tpu_torch.models.{name}"),

@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu import modes as jmodes
 from tsqr_tpu_torch import modes
 
-torch.set_num_threads(2)
 
 _RNG = np.random.default_rng(0)
 A = _RNG.uniform(-1, 1, (64, 48)).astype(np.float32)

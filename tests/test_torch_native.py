@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.utils import native as jnative
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.utils import native

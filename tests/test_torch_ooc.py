@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.core import ooc as jooc
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import auto, ooc
@@ -28,8 +29,6 @@ from tsqr_tpu_torch.utils import latms, validation
 # the packages re-export the lstsq function under its module's name
 jlstsq = importlib.import_module("tsqr_tpu.models.lstsq")
 plstsq = importlib.import_module("tsqr_tpu_torch.models.lstsq")
-
-torch.set_num_threads(2)
 
 
 def _rand(m, n, seed):

@@ -7,12 +7,12 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.ops import pallas_panel, pallas_panel_sb
 from tsqr_tpu.ops import panel_qr as jpanel_qr
 from tsqr_tpu_torch.ops import panel_kernel, panel_qr
 from tsqr_tpu_torch.utils import trace, validation
 
-torch.set_num_threads(2)
 
 B, L, N = 8, 64, 16
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu import modes as jmodes
 from tsqr_tpu.core import tsqr as jtsqr
 from tsqr_tpu.ops import householder as jhouseholder
@@ -20,8 +21,6 @@ from tsqr_tpu_torch.core import auto
 from tsqr_tpu_torch.core import tsqr as tsqr_mod
 from tsqr_tpu_torch.ops import householder, panel_kernel
 from tsqr_tpu_torch.utils import trace, validation
-
-torch.set_num_threads(2)
 
 
 def _rel(x, ref) -> float:

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 import _torch_parallel_ranks as ranks
 from tsqr_tpu.core import cholqr as jcholqr
 from tsqr_tpu.parallel import dtsqr as jd
@@ -33,7 +34,6 @@ from tsqr_tpu_torch.core import blockqr, ooc
 from tsqr_tpu_torch.parallel import launch
 from tsqr_tpu_torch.utils import latms, validation
 
-torch.set_num_threads(2)
 
 TOL = 1e-5
 N_WIRE = 64

@@ -7,13 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.ops import pallas_gram
 from tsqr_tpu_torch.core import cholqr
 from tsqr_tpu_torch.harness import flops
 from tsqr_tpu_torch.ops import gram_stream
 from tsqr_tpu_torch.utils import trace
 
-torch.set_num_threads(2)
 
 N = 128
 CHUNK = gram_stream.GRAM_CHUNK  # the kernel's chunk, in both packages

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.core import cholqr as jcholqr
 from tsqr_tpu.ops import pallas_gram
 from tsqr_tpu import modes as jmodes
@@ -18,7 +19,6 @@ from tsqr_tpu_torch.harness import flops
 from tsqr_tpu_torch.ops import gram_stream
 from tsqr_tpu_torch.utils import trace
 
-torch.set_num_threads(2)
 
 SHAPES = [(1024, 192), (1024, 256), (1024, 1024)]
 MODES = ["fp32", "bf16x3_cor", "bf16x6_cor", "bf16"]
@@ -78,7 +78,10 @@ def test_wide_stream_matches_pallas(kind, mode, m, n):
         jnp.asarray(a).astype(in_j), tuple(map(jnp.asarray, rinvs)), dmodes,
         write_q=write_q, gram_mode=gmode, chunk=gram_stream.GRAM_CHUNK,
         interpret=True, residual=residual, out_dtype=out_j, alias_q=alias_q)
-    at = torch.from_numpy(a).to(in_t)
+    # the port gets its own A: on the CPU jnp.asarray(a) shares a's memory
+    # and the reference may still read it after its call returns, so
+    # alias_q writing Q over a shared A would race the reference
+    at = torch.from_numpy(a.copy()).to(in_t)
     got = gram_stream.stream(
         at, tuple(map(torch.from_numpy, rinvs)), dmodes, write_q=write_q,
         gram_mode=gmode, residual=residual, out_dtype=out_t, alias_q=alias_q)

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import pytest
 
+import _torch_threads  # noqa: F401
 import tsqr_tpu_torch
 from qrbench import cell as cell_mod, generate, reference
 from tsqr_tpu_torch.utils import trace

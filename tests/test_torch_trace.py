@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu_torch.core import auto
 from tsqr_tpu_torch.utils import trace
 

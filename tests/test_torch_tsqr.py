@@ -8,14 +8,13 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.core import blockqr as jblockqr
 from tsqr_tpu.core import tsqr as jtsqr
 from tsqr_tpu.ops import householder as jhouseholder
 from tsqr_tpu_torch.core import blockqr, tsqr
 from tsqr_tpu_torch.ops import householder
 from tsqr_tpu_torch.utils import trace, validation
-
-torch.set_num_threads(2)
 
 
 def _matrix(m, n, seed=0):

@@ -14,12 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from tsqr_tpu.core import blockqr as jblockqr
 from tsqr_tpu.core import update as jupdate
 from tsqr_tpu_torch.core import auto, update
 from tsqr_tpu_torch.utils import validation
 
-torch.set_num_threads(2)
 
 M, N = 512, 48
 
