@@ -15,9 +15,13 @@ range (the ``panel_wide`` phase: the wide panel kernel of
 ``panel_wide.cu`` against its plain version in every mode at n = 136,
 256, 384 and 512, ``tsqr`` on it at (2^20, 256) and (2^19, 512) beside
 the blocked-Householder leaf, the leaf heights at (2^20, 256), ``cca``
-256 wide and ``qr`` with 256-wide panels), run the measurement path (the
-bandwidth sweep of ``harness.bw`` and the ``harness.mfu`` sweep), the
-in-place QR at (2^22, 128), every cholqr2_fused variant and ``qr_auto``,
+256 wide and ``qr`` with 256-wide panels), hold the Q build's
+split-product kernel ``split_mm.cu`` to its plain version and to the
+float64 product at the trees' largest products, under a limit that the
+product a part short fails, and time it (the ``split_mm`` phase), run the
+measurement path (the bandwidth sweep of ``harness.bw`` and the
+``harness.mfu`` sweep), the in-place QR at (2^22, 128), every
+cholqr2_fused variant and ``qr_auto``,
 take gradients through the entry points on the card (the ``grad`` phase:
 the ladder, the tree and BlockQR, held against the CPU's), run the five
 QR updates at (2^20, 128) (the ``update`` phase), the reference's
@@ -76,6 +80,7 @@ from tsqr_tpu_torch.core import tsqr as tsqr_mod  # noqa: E402
 from tsqr_tpu_torch.ops import _build, bw_probe, gram_stream as gs  # noqa: E402
 from tsqr_tpu_torch.ops import householder  # noqa: E402
 from tsqr_tpu_torch.ops import panel_kernel as pk  # noqa: E402
+from tsqr_tpu_torch.ops import split_mm as sm  # noqa: E402
 from tsqr_tpu_torch.utils import latms, timing, validation  # noqa: E402
 from tsqr_tpu_torch.utils import native, trace  # noqa: E402
 from tsqr_tpu_torch import models as tmodels  # noqa: E402
@@ -92,8 +97,9 @@ PANEL_SOURCE = "tsqr_tpu_torch/ops/csrc/panel_qr.cu"
 BW_SOURCE = "tsqr_tpu_torch/ops/csrc/bw_probe.cu"
 WIDE_SOURCE = "tsqr_tpu_torch/ops/csrc/stream_wide.cu"
 WIDE_PANEL_SOURCE = "tsqr_tpu_torch/ops/csrc/panel_wide.cu"
+SPLIT_MM_SOURCE = "tsqr_tpu_torch/ops/csrc/split_mm.cu"
 KERNELS = ("stream_gram", "stream_wide", "panel_qr", "panel_wide",
-           "bw_probe")
+           "bw_probe", "split_mm")
 M_BW = 1 << 22       # the bandwidth sweep's and the in-place runs' rows
 INPLACE_PEAK_MAX = 64 << 20  # bytes a call may allocate above its input
 INPLACE_CASES = (("cholqr1_fused", "safe"), ("cholqr2_fused", "compact"),
@@ -161,6 +167,14 @@ WIDE_PANEL_PATHS = ((1 << 20, 256), (1 << 19, 512))
 # every target from 2n to L_WIDE_MAX): (leaf_rows, fanin)
 WIDE_PANEL_HEIGHTS = ((1024, 4), (512, 2))
 M_CCA_WIDE, P_CCA_WIDE, Q_CCA_WIDE = 1 << 18, 256, 64
+# the split_mm phase: the Q build's kernel against its plain version and
+# the float64 product at the trees' largest products, (batch, M, K, N):
+# tall256's layer-0 and first-level products and tall128.rankdef's
+# layer-0 product, x the transposed view of Q^T as the tree passes it;
+# every part count, then timed at bf16x6_cor beside the plain version
+SPLIT_MM_SHAPES = ((4096, 256, 256, 256), (1024, 1024, 256, 256),
+                   (4096, 256, 128, 128))
+SPLIT_MM_MODES = {1: "bf16", 2: "bf16x3_cor", 3: MODE}
 M_QR_PANEL, N_QR_PANEL, QR_PANEL_WIDTH = 1 << 18, 512, 256
 # the grad phase: (m, n), and the cases (entry, mode).  The card's and the
 # CPU's factors agree to float32 grade; the rule carries their difference
@@ -563,7 +577,8 @@ def wide_panel_path(m: int, n: int, gen) -> dict:
             and counts["panel_qr_wide"] == 1 + levels
             and outer == (1 + levels) * pk.wide_outer_applies(n)
             and not counts["panel_qr"] and not hh
-            and inner == {"kernel": levels}):
+            and inner == {"kernel": levels}
+            and counts["split_mm"] == levels):
         raise AssertionError(f"tsqr ({m}, {n}) on the wide leaf: orth "
                              f"{orth:.2e} residual {res:.2e} launches "
                              f"{counts} 64-column applies {outer} inner "
@@ -704,6 +719,106 @@ def phase_panel_wide(gen) -> dict:
             "entry": entry}
 
 
+def split_operands(shape, gen):
+    """x (B, M, K) as the transposed view of a (B, K, M) tensor and
+    c (B, K, N), uniform in [-1, 1)."""
+    B, M, K, N = shape
+    x = torch.rand(B, K, M, device="cuda", generator=gen) * 2 - 1
+    c = torch.rand(B, K, N, device="cuda", generator=gen) * 2 - 1
+    return x.transpose(1, 2), c
+
+
+def split_mm_ratio(y, y0, x, c) -> float:
+    """max |y - y0| over 4 K u (|x| @ |c|): the kernel and its plain
+    version sum the same exact products of bf16 parts in other orders,
+    each within K u sum |x c| of the exact sum (2 u a term for the tensor
+    core's truncating adds).  At most 1 passes."""
+    bound = 4 * x.shape[2] * 2.0 ** -24 * (x.double().abs()
+                                          @ c.double().abs())
+    return float(((y.double() - y0.double()).abs() / bound).max())
+
+
+def phase_split_mm(gen) -> dict:
+    """The Q build's kernel (split_mm.cu) at SPLIT_MM_SHAPES: one launch a
+    call, each part count held to its plain version (the mode's own
+    product) and, against the float64 product, under
+    ``split_mm.ERROR_LIMIT``, which the product a part short
+    (``split_mm_control``) has to exceed, then timed at bf16x6_cor beside
+    the plain version (``modes.mm_bf16x6_cor``, the route it replaced),
+    float32 ``torch.bmm`` and the bound."""
+    t0 = time.perf_counter()
+    errors, times = {}, {}
+    for shape in SPLIT_MM_SHAPES:
+        x, c = split_operands(shape, gen)
+        key = "x".join(map(str, shape))
+        parts_ms = {}
+        for parts, mode in SPLIT_MM_MODES.items():
+            reset_counts()
+            y = sm.batched_split_mm(x, c, parts)
+            torch.cuda.synchronize()
+            launched = read_counts()["split_mm"]
+            ratio = split_mm_ratio(y, sm.split_mm_reference(x, c, parts),
+                                   x, c)
+            error = sm.split_mm_error(y, x, c)
+            del y
+            short = sm.split_mm_error(sm.split_mm_control(x, c, parts), x, c)
+            limit = sm.ERROR_LIMIT[parts]
+            if launched != 1 or not ratio <= 1.0 or not error <= limit < short:
+                raise AssertionError(f"split_mm {key} {mode}: {launched} "
+                                     f"launches, {ratio:.3f} of the plain "
+                                     f"version's bound, error {error:.3e}, "
+                                     f"limit {limit:.1e}, a part short "
+                                     f"{short:.3e}")
+            errors[f"{key} {mode}"] = {"of_plain_bound": ratio,
+                                       "error": error, "limit": limit,
+                                       "part_short": short}
+            parts_ms[mode] = float(np.median(timing.time_cuda(
+                lambda p=parts: sm.batched_split_mm(x, c, p), reps=5,
+                warmup=1)))
+        bound = flops.split_mm_bound(*shape, MODE)
+        times[key] = {
+            "ms": parts_ms[MODE], "modes_ms": parts_ms,
+            "plain_ms": float(np.median(timing.time_cuda(
+                lambda: modes.mm_bf16x6_cor(x, c), reps=3, warmup=1))),
+            "library_ms": float(np.median(timing.time_cuda(
+                lambda: torch.bmm(x, c), reps=3, warmup=1))),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bf16_tflops": bound["bf16_flops"] / parts_ms[MODE] / 1e9}
+        del x, c
+    out = {"errors": errors, "times": times,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"split_mm": out}), flush=True)
+    return out
+
+
+def split_mm_entry(run: dict, tier4: dict, paths: dict) -> dict:
+    """split_mm.cu's ``kernels`` entry: timed at tall256's layer-0
+    product, its launches on every path (a list a rank on the distributed
+    path)."""
+    key = "x".join(map(str, SPLIT_MM_SHAPES[0]))
+    t = run["times"][key]
+    by_path = {p: ([r.get("split_mm", 0) for r in c] if isinstance(c, list)
+                   else c.get("split_mm", 0)) for p, c in paths.items()}
+    by_path["tier4"] = tier4["counts"]["split_mm"]
+    return {"name": "split_mm", "route": "cuda", "source": SPLIT_MM_SOURCE,
+            "replaces": "no TPU kernel: the JAX package leaves the tree's "
+                        "Q-build products to XLA's matmul "
+                        "(tsqr_tpu/core/tsqr.py's backward)",
+            "launches": by_path[f"panel_wide {WIDE_PANEL_PATHS[0][0]}x"
+                                f"{WIDE_PANEL_PATHS[0][1]}"],
+            "max_error_of_bound": max(e["of_plain_bound"]
+                                      for e in run["errors"].values()),
+            "max_error_of_limit": max(e["error"] / e["limit"]
+                                      for e in run["errors"].values()),
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            "shapes": f"({key}) (batch, M, K, N) f32 {MODE}, the layer-0 "
+                      "product of tsqr at (2^20, 256); plain_ms is "
+                      "modes.mm_bf16x6_cor, library_ms float32 torch.bmm; "
+                      "launches from the tsqr path at that shape",
+            "at_shapes": run["times"], "launches_by_path": by_path}
+
+
 def phase_tier4(gen) -> dict:
     """The ladder on the bench shape with one zeroed column: tiers 0-3
     fail their gates and tier 4 runs BlockQR (CGS2, one panel) over two
@@ -727,7 +842,8 @@ def phase_tier4(gen) -> dict:
         raise AssertionError(f"tier-4 path orth {orth:.2e} residual "
                              f"{res:.2e}")
     if (counts["panel_qr"] != 2 * (1 + levels) or counts["stream_gram"] < 1
-            or inner != {"kernel": 2 * levels}):
+            or inner != {"kernel": 2 * levels}
+            or counts["split_mm"] != 2 * levels):
         raise AssertionError(f"tier-4 path launches {counts}, inner levels "
                              f"{inner}")
     del q, r
@@ -1546,7 +1662,7 @@ def kernel_launches(counts: dict) -> dict:
                                    "stream_wide_dot", "stream_wide_gram",
                                    "stream_wide_dot_fp32",
                                    "stream_wide_gram_fp32", "panel_qr",
-                                   "panel_qr_wide")}
+                                   "panel_qr_wide", "split_mm")}
 
 
 def regen_q_orthogonality(mode: str) -> dict:
@@ -2230,7 +2346,7 @@ def wide_entries(wide: dict) -> list:
 
 def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
                        inplace: dict, paths: dict, wide: dict,
-                       panel_wide_entry: dict) -> None:
+                       panel_wide_entry: dict, split_mm_run: dict) -> None:
     """Every kernel of the main paths at the main paths' shapes: its time,
     its plain version's time, the library call's time and the bound; the
     stream and panel kernels' launches on the bench, ooc and models paths
@@ -2339,6 +2455,7 @@ def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
          "single_call_event_ms": r_event_ms},
         panel_entry(tier4),
         panel_wide_entry,
+        split_mm_entry(split_mm_run, tier4, paths),
         probe_entry("read_reduce", bw_run["counts"], gen),
         probe_entry("copy", bw_run["counts"], gen),
     ]
@@ -2374,6 +2491,7 @@ def main() -> int:
     phase_qr_wide(gen)
     wide_run = phase_wide(gen)
     panel_wide_run = phase_panel_wide(gen)
+    split_mm_run = phase_split_mm(gen)
     bw_run = phase_bw_sweep()
     inplace = phase_inplace(gen)
     phase_cholqr2(main_run["a"])
@@ -2392,7 +2510,7 @@ def main() -> int:
                        bw_run, inplace,
                        launches_by_path(bench_run, ooc_run, models_run,
                                         dist_run, wide_run, panel_wide_run),
-                       wide_run, panel_wide_run["entry"])
+                       wide_run, panel_wide_run["entry"], split_mm_run)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from tsqr_tpu_torch.core import auto
-from tsqr_tpu_torch.ops import bw_probe, gram_stream, panel_kernel
+from tsqr_tpu_torch.ops import bw_probe, gram_stream, panel_kernel, split_mm
 from tsqr_tpu_torch.utils import latms, trace, validation
 
 pytestmark = pytest.mark.gpu
@@ -528,6 +528,93 @@ def test_tall256_call_on_card_passes_the_cell_limits(card):
             == 7 * len(panels))
     got = reference.judge(a, q, r)
     assert all(got[k] <= limits[k] for k in limits), (got, limits)
+
+
+# split_mm.cu, the Q build's products: tall256's layer-0 and first-level
+# products, tall128.rankdef's layer-0 product, a ragged batch and batch 1
+SPLIT_MM_SHAPES = ((4096, 256, 256, 256), (1024, 1024, 256, 256),
+                   (4096, 256, 128, 128), (3, 1000, 200, 200),
+                   (1, 1024, 256, 256))
+
+
+def _split_operands(card, B, M, K, N, xt, ct, seed=21):
+    """x (B, M, K) and c (B, K, N), each contiguous or the transposed view
+    of its transpose (the tree's Q^T views and its root block)."""
+    gen = torch.Generator(card).manual_seed(seed)
+
+    def draw(rows, cols, t):
+        shape = (B, cols, rows) if t else (B, rows, cols)
+        v = torch.rand(*shape, device=card, generator=gen) * 2 - 1
+        return v.transpose(1, 2) if t else v
+    return draw(M, K, xt), draw(K, N, ct)
+
+
+@pytest.mark.parametrize("xt,ct", [(False, False), (True, False),
+                                   (True, True), (False, True)])
+@pytest.mark.parametrize("parts", [1, 2, 3])
+@pytest.mark.parametrize("B,M,K,N", SPLIT_MM_SHAPES)
+def test_split_mm_matches_plain_version(card, B, M, K, N, parts, xt, ct):
+    x, c = _split_operands(card, B, M, K, N, xt, ct)
+    launches = trace.counts("launches.")["split_mm"]
+    y = split_mm.batched_split_mm(x, c, parts)
+    assert trace.counts("launches.")["split_mm"] == launches + 1
+    y0 = split_mm.split_mm_reference(x, c, parts)
+    assert y.shape == y0.shape == (B, M, N) and y.is_contiguous()
+    # the same exact products of bf16 parts summed in another order: each
+    # sum lies within K u sum |x c| of the exact one (2 u a term for the
+    # tensor core's truncating adds), so the two within 4 K u (|x| @ |c|)
+    bound = 4 * K * 2.0 ** -24 * (x.double().abs() @ c.double().abs())
+    assert bool(((y.double() - y0.double()).abs() <= bound).all())
+    del y0, bound
+    # against the float64 product, the limit that a launch a part short
+    # (the plain version at parts - 1) fails
+    limit = split_mm.ERROR_LIMIT[parts]
+    error = split_mm.split_mm_error(y, x, c)
+    short = split_mm.split_mm_error(split_mm.split_mm_control(x, c, parts),
+                                    x, c)
+    assert error <= limit < short, (error, limit, short)
+
+
+def test_split_mm_raises_before_launching(card):
+    x = torch.rand(2, 64, 32, device=card)
+    c = torch.rand(2, 32, 16, device=card)
+    launches = trace.counts("launches.")["split_mm"]
+    for args, match in (((x.double(), c, 3), "float32"),
+                        ((x, c.bfloat16(), 3), "float32"),
+                        ((x.cpu(), c, 3), "cuda device"),
+                        ((x, c.cpu(), 3), "cuda device"),
+                        ((x, c[:1], 3), "do not match"),
+                        ((x, c[:, :16], 3), "do not match"),
+                        ((x[0], c[0], 3), "B, M, K"),
+                        ((x, c, 0), "parts"),
+                        ((x[:, ::2, ::2], c[:, :16], 3), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            split_mm.batched_split_mm(*args)
+    torch.cuda.synchronize()
+    assert trace.counts("launches.")["split_mm"] == launches
+
+
+def test_tall256_tree_builds_q_on_split_mm(card):
+    """``tsqr(a, "bf16x6_cor")`` at the cell's (2^20, 256): its six Q-build
+    products (five levels and the leaves) are six launches, none through
+    ``policy.mm``, and Q and R pass the cell's orthogonality and residual
+    limits."""
+    import json
+    from pathlib import Path
+
+    import tsqr_tpu_torch
+    limits = json.loads((Path(__file__).resolve().parents[1] / "qrbench"
+                         / "limits" / "tall256.well.json").read_text())
+    gen = torch.Generator(card).manual_seed(19)
+    a = torch.empty(1 << 20, 256, device=card).uniform_(-1, 1,
+                                                        generator=gen)
+    launches = trace.counts("launches.")["split_mm"]
+    routes = trace.counts("tsqr.q_build.")
+    q, r = tsqr_tpu_torch.tsqr(a, "bf16x6_cor")
+    assert trace.counts("launches.")["split_mm"] == launches + 6
+    assert trace.counts("tsqr.q_build.") - routes == {"kernel": 6}
+    assert validation.orthogonality_accurate(q) <= limits["orth"]
+    assert validation.residual_accurate(a, q, r) <= limits["resid"]
 
 
 def test_tsqr_gradient_on_the_wide_leaf_matches_cpu(card):

@@ -12,8 +12,9 @@ import _torch_threads  # noqa: F401
 from tsqr_tpu.core import blockqr as jblockqr
 from tsqr_tpu.core import tsqr as jtsqr
 from tsqr_tpu.ops import householder as jhouseholder
+from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import blockqr, tsqr
-from tsqr_tpu_torch.ops import householder
+from tsqr_tpu_torch.ops import householder, split_mm
 from tsqr_tpu_torch.utils import trace, validation
 
 
@@ -218,3 +219,128 @@ def test_blockqr_panel_methods():
         blockqr.qr(a, "fp32", panel_method="bogus", device="cpu")
     with pytest.raises(ValueError, match="m >= n"):
         blockqr.qr(a.T, "fp32", device="cpu")
+
+
+# ---- the Q build's products: split_mm's limit and the route --------------
+
+def _operands(transposed: bool, b=3, m=40, n=16, seed=4):
+    """x (b, m, n) contiguous or the transposed view of a (b, n, m) tensor,
+    as the panel kernels' Q^T reaches the Q build; c (b, n, n)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, n, m) if transposed
+                                     else (b, m, n)).astype(np.float32))
+    c = torch.from_numpy(rng.uniform(-1, 1, (b, n, n)).astype(np.float32))
+    return (x.transpose(1, 2) if transposed else x), c
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_split_mm_error_limit_passes_the_plain_version_and_refuses_a_part_short(
+        parts, transposed):
+    """The card tests' limit at each part count on the plain version (the
+    kernel's products summed in another order), which stays under it, and
+    on the control a part short, which goes over it."""
+    x, c = _operands(transposed, b=4, m=128, n=64)
+    limit = split_mm.ERROR_LIMIT[parts]
+    plain = split_mm.split_mm_error(
+        split_mm.split_mm_reference(x, c, parts), x, c)
+    short = split_mm.split_mm_error(
+        split_mm.split_mm_control(x, c, parts), x, c)
+    assert plain <= limit < short, (plain, limit, short)
+
+
+@pytest.mark.parametrize("mode", [md.value for md in modes.ALL_MODES])
+def test_q_product_on_cpu_keeps_the_policy_product(mode):
+    """On a CPU tensor every mode's product goes to ``policy.mm``, bit for
+    bit, counted in ``tsqr.q_build.mm``."""
+    policy = modes.resolve(mode)
+    x, c = _operands(True)
+    before = trace.counts("tsqr.q_build.")
+    assert torch.equal(tsqr._q_product(policy.mm, x, c), policy.mm(x, c))
+    assert trace.counts("tsqr.q_build.") - before == {"mm": 1}
+
+
+def _custom_mm(a, b):
+    return modes.mm_bf16x6_cor(a, b)
+
+
+@pytest.mark.parametrize("policy,parts", [
+    *[(modes.resolve(md), split_mm.PARTS.get(modes.resolve(md).mm))
+      for md in modes.ALL_MODES],
+    # the route follows the product, not the mode's name
+    (modes.Policy(modes.ComputeMode.FP32, torch.float32, torch.float32,
+                  modes.mm_bf16x6_cor), 3),
+    (modes.Policy(modes.ComputeMode.BF16X6_COR, torch.float32,
+                  torch.float32, _custom_mm), None),
+    (modes.Policy(modes.ComputeMode.BF16, torch.bfloat16, torch.bfloat16,
+                  modes.mm_bf16x3_cor_3term), None)])
+def test_q_build_route_follows_the_policy_product(policy, parts):
+    """On the card a split mode's own product takes the kernel at its part
+    count; fp32, the emulation modes and any other product keep
+    ``policy.mm``; off the card every product keeps it."""
+    expected = {"fp32": None, "bf16": 1, "bf16_nocor": 1, "bf16x3_nocor": 2,
+                "bf16x3_cor": 2, "bf16x6_cor": 3}
+    if policy is modes.resolve(policy.mode):
+        assert parts == expected.get(policy.name)
+    assert split_mm.PARTS.get(policy.mm) == parts
+    x, c = _operands(True)
+    before = trace.counts("tsqr.q_build.")
+    assert torch.equal(tsqr._q_product(policy.mm, x, c), policy.mm(x, c))
+    assert trace.counts("tsqr.q_build.") - before == {"mm": 1}
+
+
+@pytest.mark.parametrize("seq_chunks", [None, 2])
+@pytest.mark.parametrize("mode,impl", [
+    ("fp32", None), ("bf16x6_cor", None), ("bf16x3_cor_emu", "jnp")])
+def test_cpu_tsqr_counts_each_q_build_product_on_the_policy_route(
+        mode, impl, seq_chunks):
+    """(2000, 16) in 16 leaves at fan-in 4: one product for the level
+    below the root, then one a leaf chunk; none on the kernel, nothing
+    launched, and none without Q.  (The panel kernel's modes leave out
+    the emulation modes; the blocked Householder takes them.)"""
+    a = torch.from_numpy(_matrix(M, N, 5))
+    before = trace.counts("tsqr.q_build.")
+    launches = trace.counts("launches.")
+    q, r = tsqr.tsqr(a, mode, leaf_rows=LEAF, fanin=FANIN, impl=impl,
+                     tree_impl=impl, seq_chunks=seq_chunks, device="cpu")
+    assert trace.counts("tsqr.q_build.") - before == {
+        "mm": 1 + (seq_chunks or 1)}
+    assert trace.counts("launches.") == launches
+    assert q.shape == (M, N) and r.shape == (N, N)
+    before = trace.counts("tsqr.q_build.")
+    tsqr.tsqr(a, mode, leaf_rows=LEAF, fanin=FANIN, impl=impl,
+              tree_impl=impl, want_q=False, device="cpu")
+    assert trace.counts("tsqr.q_build.") == before
+
+
+@pytest.mark.parametrize("shapes,parts,match", [
+    (((2, 8, 4), (2, 4, 5)), 4, "parts"),
+    (((2, 8, 4), (2, 4, 5)), 0, "parts"),
+    (((8, 4), (4, 5)), 3, "B, M, K"),
+    (((2, 8, 4), (3, 4, 5)), 3, "do not match"),
+    (((2, 8, 4), (2, 5, 5)), 3, "do not match"),
+    (((2, 8, 4), (2, 4, 5)), 3, "cuda device")])
+def test_split_mm_rejects_what_it_does_not_take(shapes, parts, match):
+    x, c = (torch.zeros(s) for s in shapes)
+    with pytest.raises(ValueError, match=match):
+        split_mm.batched_split_mm(x, c, parts)
+
+
+def test_split_mm_reads_either_layout_and_raises_on_other_strides():
+    """The wrapper's layout of each operand, on meta tensors (no card,
+    nothing launched): rows contiguous, columns contiguous (the tree's
+    transposed Q^T), a unit extent either way; other strides and a
+    device other than cuda raise."""
+    x = torch.empty(4, 96, 32, device="meta")
+    assert split_mm._layout(x) == (0, 32)
+    assert split_mm._layout(x.transpose(1, 2).contiguous()
+                            .transpose(1, 2)) == (1, 96)
+    assert split_mm._layout(torch.empty(4, 1, 32, device="meta")) == (0, 32)
+    assert split_mm._layout(torch.empty(4, 96, 1, device="meta")) == (0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        split_mm._layout(torch.empty(4, 96, 64, device="meta")[:, :, ::2])
+    launches = trace.counts("launches.")
+    with pytest.raises(ValueError, match="cuda device"):
+        split_mm.batched_split_mm(x, torch.empty(4, 32, 32, device="meta"),
+                                  3)
+    assert trace.counts("launches.") == launches

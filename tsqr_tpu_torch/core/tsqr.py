@@ -18,7 +18,10 @@ panel kernel up to n = 512, at the largest fan-in whose (f n, n) node it
 holds (:func:`inner_route`: 2 at n = 128, 8 at n <= 64), and the blocked
 Householder at ``fanin`` past it, or wherever the caller asks for
 ``tree_impl="jnp"`` (the reference's inner route).  The backward drops
-each level's Q once its product has read it.
+each level's Q once its product has read it.  On the card each of its
+products at a split mode (the policy's product one of the split modes'
+own functions) is one launch of ``ops/csrc/split_mm.cu``
+(:func:`_q_product`); every other product is ``policy.mm``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 from tsqr_tpu_torch import modes
 from tsqr_tpu_torch.core import diff
-from tsqr_tpu_torch.ops import householder, panel_kernel
+from tsqr_tpu_torch.ops import householder, panel_kernel, split_mm
 from tsqr_tpu_torch.utils import device as _device
 from tsqr_tpu_torch.utils import trace
 
@@ -46,12 +49,14 @@ DEFAULT_BLOCK = 24
 # Above LEAF_SEQ_THRESHOLD leaf elements (m_pad n), the leaf QR and the
 # layer-0 backward product run chunk by chunk over ~LEAF_CHUNK_ELEMS
 # leaf elements instead of over the whole batch at once.  The peak of
-# the tree is the layer-0 product at bf16x6_cor: the padded A, the
-# leaves' Q^T, three split parts of Q^T and its two residuals, the
-# per-order products and Q, about ten panel-sized float32 tensors.  Ten
-# of 2^30 elements are 40 GiB, half of the H100's 80 GB, which leaves the
-# caller room for its own data; chunks of 2^28 elements keep the live
-# temporaries near 10 GiB above that.
+# the tree is the layer-0 product: on the card at a split mode the
+# kernel forms the parts on chip, so the padded A, the leaves' Q^T and Q,
+# three panel-sized float32 tensors (beside c, n / L of one); through
+# policy.mm (fp32, the emulation modes, a CPU tensor) the split parts and
+# per-order products add up to about ten.  Ten of 2^30 elements are
+# 40 GiB, half of the H100's 80 GB, which leaves the caller room for its
+# own data; chunks of 2^28 elements keep the live temporaries near
+# 10 GiB above that.
 LEAF_SEQ_THRESHOLD = 1 << 30
 LEAF_CHUNK_ELEMS = 1 << 28
 
@@ -144,6 +149,19 @@ def _pad_rows(a: Tensor, m_pad: int) -> Tensor:
     if m_pad == m:
         return a
     return torch.cat([a, a.new_zeros(m_pad - m, a.shape[1])])
+
+
+def _q_product(mm: Callable, x: Tensor, c: Tensor) -> Tensor:
+    """One product of the Q build, x (B, M, n) @ c (B, n, n), counted by
+    route in ``tsqr.q_build.kernel`` or ``tsqr.q_build.mm``: the kernel on
+    the card where ``mm`` is one of the split modes' own products
+    (``split_mm.PARTS``), whatever the policy's mode is called."""
+    parts = split_mm.PARTS.get(mm) if x.is_cuda else None
+    if parts is None:
+        trace.count("tsqr.q_build.mm")
+        return mm(x, c)
+    trace.count("tsqr.q_build.kernel")
+    return split_mm.batched_split_mm(x, c, parts)
 
 
 def _make_batched_qr(policy: modes.Policy, impl: str,
@@ -290,12 +308,13 @@ def tsqr(a: Tensor,
         with trace.span("tsqr.q_build"):
             # c starts as the root Q cut into per-child (n, n) blocks; each
             # level's Q is dropped once its product has read it, so the
-            # layer-0 product runs beside c and the leaves' Q alone
+            # layer-0 product runs beside c and the leaves' Q alone; prod
+            # is (bk, f n, n), the layer-0 parts (bs / seq, L, n)
             c = qs.pop().to(torch.float32).reshape(widths.pop(), n, n)
             while qs:
-                prod = mm(qs.pop().to(torch.float32), c)  # (bk, f n, n)
+                prod = _q_product(mm, qs.pop().to(torch.float32), c)
                 c = prod.reshape(prod.shape[0] * widths.pop(), n, n)
-            parts = [mm(qc.to(torch.float32), cc)          # (bs / seq, L, n)
+            parts = [_q_product(mm, qc.to(torch.float32), cc)
                      for qc, cc in zip(q0, c.reshape(seq, bs // seq, n, n))]
             q = parts[0] if seq == 1 else torch.cat(parts)
             q = q.reshape(m_pad, n)[:m]

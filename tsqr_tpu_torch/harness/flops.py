@@ -5,7 +5,9 @@ count), against which the ladder's TFLOP/s are reported; ``tsqr_flops``
 and ``blockqr_flops`` are the reference's models of the tree and of
 BlockQR, for the speed harness.  ``stream_bound`` and ``panel_bound``
 count what one ``stream`` call or one panel-kernel launch must move and
-compute and turn it into the least time an H100 SXM could take for it.
+compute and turn it into the least time an H100 SXM could take for it;
+``split_mm_bound`` does the same for one launch of the Q build's
+split-product kernel.
 
 ``fused_products``/``xla_products`` and ``fused_hbm_bytes``/
 ``xla_hbm_bytes`` model the CholeskyQR pipelines for the MFU harness:
@@ -243,6 +245,18 @@ def panel_bound(batch: int, L: int, n: int, mode: str) -> dict:
     nbytes = 4 * batch * (2 * L * n + n * n)
     flops = (batch * (4.0 * L * n * n - (4.0 / 3.0) * n ** 3)
              * DOT_PRODUCTS[mode])
+    return _bound(nbytes, 0.0 if mode == "fp32" else flops,
+                  flops if mode == "fp32" else 0.0)
+
+
+def split_mm_bound(batch: int, m: int, k: int, n: int, mode: str) -> dict:
+    """Bytes, flops and the H100 lower bound of one ``split_mm`` launch,
+    y (batch, m, n) = x (batch, m, k) @ c (batch, k, n) in float32: x and
+    c read once, y written once; 2 m k n flops an item at the mode's split
+    products, as ``stream_bound`` counts a dot.  Same keys as
+    ``stream_bound``."""
+    nbytes = 4 * batch * (m * k + k * n + m * n)
+    flops = 2.0 * batch * m * k * n * DOT_PRODUCTS[mode]
     return _bound(nbytes, 0.0 if mode == "fp32" else flops,
                   flops if mode == "fp32" else 0.0)
 

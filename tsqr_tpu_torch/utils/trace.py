@@ -58,7 +58,7 @@ interval launched it.
   ``stream_wide_gram``, ``stream_wide_dot_fp32``, ``stream_wide_gram_fp32``,
   ``stream_wide_store``, ``stream_wide_split_r``, ``stream_wide_split_x``,
   ``panel_qr``, ``panel_qr_wide`` (calls, each its launch sequence),
-  ``read_reduce``, ``read_reduce_sum``, ``copy``);
+  ``split_mm``, ``read_reduce``, ``read_reduce_sum``, ``copy``);
 - ``panel_wide.outer_applies``: the 64-column reflector applies that
   ``panel_wide.cu``'s launch sequence reports it issued, added with each
   call's ``launches.panel_qr_wide`` (7 a call at n = 256; a call whose
@@ -69,6 +69,10 @@ interval launched it.
 - ``tsqr.inner.kernel``, ``tsqr.inner.householder``: levels of a TSQR
   tree's inner nodes, one count a level, by route: the panel kernel (its
   plain version on a CPU tensor) or the blocked Householder;
+- ``tsqr.q_build.kernel``, ``tsqr.q_build.mm``: products of a TSQR
+  tree's Q build, one count a product, by route: ``split_mm.cu`` (the
+  policy's product one of the split modes' own, on the card) or the
+  policy's product itself;
 - ``sync.<site>``: host reads of device values at each site.
 """
 
