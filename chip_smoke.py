@@ -539,7 +539,7 @@ def inner_levels(bs: int, fanin: int) -> int:
 def tree_launches(m: int, n: int) -> tuple[int, int, int]:
     """(leaves, leaf rows, inner levels) of the default tree at (m, n)."""
     fanin = tsqr_mod.DEFAULT_FANIN
-    bs, L, _ = tsqr_mod.plan_tree(m, n, tsqr_mod.default_leaf_rows(n),
+    bs, L, _ = tsqr_mod.tree_plan(m, n, tsqr_mod.default_leaf_rows(n),
                                   fanin)
     return bs, L, inner_levels(bs, tsqr_mod.inner_route(None, n, fanin)[1])
 
@@ -658,7 +658,7 @@ def phase_panel_wide(gen) -> dict:
         "leaf_rows": None, "leaves": main["leaves"],
         "ms_median": main["ms_median"], "ms": main["ms"]}}
     for leaf_rows, fanin in WIDE_PANEL_HEIGHTS:
-        bs, L, _ = tsqr_mod.plan_tree(a.shape[0], a.shape[1], leaf_rows,
+        bs, L, _ = tsqr_mod.tree_plan(a.shape[0], a.shape[1], leaf_rows,
                                       fanin)
         ms = timing.time_cuda(lambda: tsqr_tpu_torch.tsqr(
             a, MODE, leaf_rows=leaf_rows, fanin=fanin), reps=1, warmup=0)
@@ -890,7 +890,7 @@ def phase_qr_wide(gen) -> None:
                           reps=3, warmup=1)
     qr_ms = float(np.median(timing.time_cuda(
         lambda: torch.linalg.qr(a), reps=3, warmup=1)))
-    bs, L, m_pad = tsqr_mod.plan_tree(M_WIDE, N, pk.max_leaf_rows(N),
+    bs, L, m_pad = tsqr_mod.tree_plan(M_WIDE, N, pk.max_leaf_rows(N),
                                       tsqr_mod.DEFAULT_FANIN)
     print(json.dumps({"qr_path": f"qr({M_WIDE}x{N_WIDE} f32, fp32, "
                                  "reorth=True)",

@@ -121,12 +121,17 @@ def _grad(case, mesh) -> dict:
 
 
 def _jvp(case, mesh) -> dict:
+    """The tangents of Q and R through the case's ``dtsqr`` entry, in the
+    signs that make diag(R) positive (as ``_grad``'s loss)."""
     a, t = _shard(case["a"], mesh), _shard(case["t"], mesh)
     with fwad.dual_level():
         q, r = getattr(dtsqr, case["driver"])(fwad.make_dual(a, t), mesh,
                                               device=CPU, **case["kw"])
-        dq, dr = fwad.unpack_dual(q).tangent, fwad.unpack_dual(r).tangent
-    return {"dq": _np(dq), "dr": _np(dr)}
+        r, dr = fwad.unpack_dual(r)
+        dq = fwad.unpack_dual(q).tangent
+    s = torch.sign(torch.diagonal(r))
+    s = torch.where(s == 0, 1.0, s)
+    return {"dq": _np(dq * s[None, :]), "dr": _np(dr * s[:, None])}
 
 
 def _grad_lstsq(case, mesh) -> dict:

@@ -530,6 +530,31 @@ def test_tall256_call_on_card_passes_the_cell_limits(card):
     assert all(got[k] <= limits[k] for k in limits), (got, limits)
 
 
+def test_block8192_call_on_card_passes_the_cell_limits(card):
+    """The benchmark's block8192 call, ``qr(a, "bf16x6_cor",
+    reorth=True)`` at the cell's (2^15, 2^13) on the cell's sm_90 card: 64
+    panel steps and 252 projection products, and Q and R within the cell's
+    limits against the plain float64 reference."""
+    import json
+    from pathlib import Path
+
+    import tsqr_tpu_torch
+    from qrbench import reference
+    if torch.cuda.get_device_capability(card) < (9, 0):
+        pytest.skip("needs an sm_90 card, the cell's H100")
+    limits = json.loads((Path(__file__).resolve().parents[1] / "qrbench"
+                         / "limits" / "block8192.well.json").read_text())
+    gen = torch.Generator(card).manual_seed(23)
+    a = torch.empty(1 << 15, 1 << 13, device=card).uniform_(-1, 1,
+                                                            generator=gen)
+    before = trace.counts("blockqr.")
+    q, r = tsqr_tpu_torch.qr(a, "bf16x6_cor", reorth=True)
+    assert trace.counts("blockqr.") - before == {"panels": 64,
+                                                 "project": 252}
+    got = reference.judge(a, q, r)
+    assert all(got[k] <= limits[k] for k in limits), (got, limits)
+
+
 # split_mm.cu, the Q build's products: tall256's layer-0 and first-level
 # products, tall128.rankdef's layer-0 product, a ragged batch and batch 1
 SPLIT_MM_SHAPES = ((4096, 256, 256, 256), (1024, 1024, 256, 256),
@@ -813,9 +838,9 @@ def test_ablate_no_panel_launches_no_panel_kernel(card):
     torch.cuda.synchronize()
     assert trace.counts("launches.")["panel_qr"] == launches
     blockqr.qr(a, _ablate="no_project")
-    # two 128-wide panels, each a tree of one leaf launch and six levels
-    # of inner nodes
-    assert trace.counts("launches.")["panel_qr"] == launches + 14
+    # two 128-wide panels, each a tree of one leaf launch (16 leaves of
+    # 256 rows, tsqr.tree_plan) and four levels of inner nodes
+    assert trace.counts("launches.")["panel_qr"] == launches + 10
 
 
 # ---- core/ooc.py and models/ on the card against the CPU ------------------

@@ -110,14 +110,16 @@ def test_tier_histogram_and_the_tree_spans(zero_column, tier):
         return
     assert tiers == ["ladder.tier0", "ladder.tier2", "ladder.tier3",
                      "ladder.tier4"]
-    # BlockQR's CGS2 over one panel: two trees, each its leaves, one
-    # level of inner nodes (eight leaves, fan-in 8) and Q down the tree;
-    # the leaves and the level each one panel-kernel call
+    # BlockQR's CGS2 over one panel: two factorizations, each a tree of
+    # its leaves, one level of inner nodes (eight leaves, fan-in 8) and Q
+    # down the tree; the leaves and the level each one panel-kernel call
     t4 = col.spans[names.index("ladder.tier4")]
     inside = [s.name for s in col.descendants(t4.sid)]
-    assert inside == ["blockqr"] + ["tsqr.tree", "tsqr.leaves", "panel",
-                                    "tsqr.level", "panel",
-                                    "tsqr.q_build"] * 2
+    assert inside == ["blockqr"] + ["blockqr.panel", "tsqr.tree",
+                                    "tsqr.leaves", "panel", "tsqr.level",
+                                    "panel", "tsqr.q_build"] * 2
+    assert [s.attrs for s in col.spans if s.name == "blockqr.panel"] == [
+        {"c0": 0, "w": 8, "pass": 1}, {"c0": 0, "w": 8, "pass": 2}]
     level = next(s for s in col.spans if s.name == "tsqr.level")
     assert level.attrs == {"batch": 1, "fanin": 8, "impl": "pallas_sb"}
     assert [s.attrs for s in col.spans if s.name == "panel"][:2] == [

@@ -173,6 +173,33 @@ def test_plan_and_sizes_match_jax(m, n, leaf, fanin):
         assert tsqr.plan_tree(m, n, leaf, fanin) == (4096, 256, 1 << 20)
 
 
+@pytest.mark.parametrize("m,n,plan", [
+    # the cells' trees, whose leaves hold n rows: plan_tree's own
+    (1 << 20, 128, (4096, 256, 1 << 20)), (1 << 20, 256, (4096, 256, 1 << 20)),
+    (1 << 19, 512, (512, 1024, 1 << 19)),
+    # plan_tree's power of 8 pads every leaf to n rows: the power of two
+    (1 << 15, 128, (128, 256, 1 << 15)), (1 << 18, 128, (1024, 256, 1 << 18)),
+    (4096, 128, (16, 256, 4096)), (2048, 512, (2, 1024, 2048))])
+def test_tree_plan_pads_no_leaf_to_n_rows(m, n, plan):
+    leaf = tsqr.default_leaf_rows(n)
+    got = tsqr.tree_plan(m, n, leaf)
+    assert got == plan
+    bs, L, m_pad = got
+    assert bs & (bs - 1) == 0 and bs * L == m_pad and m_pad - m < 8 * bs
+
+
+def test_tsqr_builds_the_tree_plan():
+    """At (4096, 128) ``tsqr``'s leaves are ``tree_plan``'s 16 of 256 rows
+    (``plan_tree``'s 64 of 64 rows padded to 128, a tree of 8192 rows,
+    before), then four levels at fan-in 2."""
+    a = torch.from_numpy(_matrix(4096, 128))
+    with trace.collect() as col:
+        tsqr.tsqr(a, "bf16x6_cor", device="cpu")
+    panels = [(s.attrs["batch"], s.attrs["L"]) for s in col.spans
+              if s.name == "panel"]
+    assert panels == [(16, 256), (8, 256), (4, 256), (2, 256), (1, 256)]
+
+
 @pytest.mark.parametrize("reorth", [False, True])
 @pytest.mark.parametrize("loop", ["unroll", "fori"])
 def test_blockqr_matches_jax(loop, reorth):

@@ -42,6 +42,25 @@ Tensor = torch.Tensor
 DEFAULT_PANEL_WIDTH = 128
 
 
+def _project(mm: Callable, qp: Tensor, x: Tensor,
+             reduce: Callable[[Tensor], Tensor]) -> tuple[Tensor, Tensor]:
+    """One CGS pass's two products against Q: (S, X - Q S) with
+    S = Q^T X, the contraction summed by ``reduce``.  Each product adds
+    one to the counter ``blockqr.project``."""
+    trace.count("blockqr.project", 2)
+    s = reduce(mm(qp.T, x))
+    return s, x - mm(qp, s)
+
+
+def _factor(tsqr_fn: Callable, x: Tensor, c0: int,
+            cgs_pass: int) -> tuple[Tensor, Tensor]:
+    """One panel factorization, in the span ``blockqr.panel`` (attrs c0,
+    w and pass: 1, or 2 for CGS2's second)."""
+    with trace.span("blockqr.panel", c0=c0, w=x.shape[1],
+                    **{"pass": cgs_pass}):
+        return tsqr_fn(x)
+
+
 def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
                 tsqr_fn: Callable, reorth: bool, full: bool = False,
                 project: bool = True,
@@ -51,12 +70,16 @@ def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
     growing slice Q[:, :c0], or with ``full`` against all of Q, whose
     columns at >= c0 are zero so that the products agree; the leading
     panel (c0 = 0) skips the projections, which are provably zero, and
-    so does every panel without ``project``.
+    so does every panel without ``project``.  Each CGS pass's products
+    are one span ``blockqr.project`` (attrs c0, w, pass) and each
+    factorization one ``blockqr.panel``; the step adds one to the
+    counter ``blockqr.panels``.
 
     ``reduce`` wraps the two projection contractions (Q^T A_b and
     Q^T Q_b): the identity here, a sum over the ranks in the distributed
     BlockQR (``parallel/dtsqr.py``), whose Q holds this rank's rows
     only."""
+    trace.count("blockqr.panels")
     w = a_b.shape[1]
     first = c0 == 0 or not project
     qp = q if full else q[:, :c0]
@@ -64,21 +87,19 @@ def _panel_step(q: Tensor, r: Tensor, a_b: Tensor, c0: int, mm: Callable,
         r12 = None
         a_p = a_b
     else:
-        r12 = reduce(mm(qp.T, a_b))
-        a_p = a_b - mm(qp, r12)
+        with trace.span("blockqr.project", c0=c0, w=w, **{"pass": 1}):
+            r12, a_p = _project(mm, qp, a_b, reduce)
+    q_b, r2 = _factor(tsqr_fn, a_p, c0, 1)
     if not reorth:
-        q_b, r22 = tsqr_fn(a_p)
-    elif first:
-        # CGS2 on the leading panel: S2 = Q^T Q_b = 0, a second QR pass
-        q_b, r2 = tsqr_fn(a_p)
-        q_b, w_fac = tsqr_fn(q_b)
-        r22 = mm(w_fac, r2)
+        r22 = r2
     else:
-        q_b, r2 = tsqr_fn(a_p)
-        s2 = reduce(mm(qp.T, q_b))
-        q_b = q_b - mm(qp, s2)
-        q_b, w_fac = tsqr_fn(q_b)
-        r12 = r12 + mm(s2, r2)
+        # CGS2; on the leading panel S2 = Q^T Q_b = 0: a second QR pass
+        if not first:
+            with trace.span("blockqr.project", c0=c0, w=w, **{"pass": 2}):
+                s2, q_b = _project(mm, qp, q_b, reduce)
+        q_b, w_fac = _factor(tsqr_fn, q_b, c0, 2)
+        if not first:
+            r12 = r12 + mm(s2, r2)
         r22 = mm(w_fac, r2)
     if r12 is not None:
         r[:qp.shape[1], c0:c0 + w] = r12
@@ -146,9 +167,10 @@ def qr(a: Tensor,
 
     with trace.span("blockqr"):
         if n <= nb:
-            q, r = _tsqr(a)
+            trace.count("blockqr.panels")
+            q, r = _factor(_tsqr, a, 0, 1)
             if reorth:  # single panel: CGS2's second pass
-                q, w_fac = _tsqr(q)
+                q, w_fac = _factor(_tsqr, q, 0, 2)
                 r = mm(w_fac, r)
             return q.to(policy.io_dtype), torch.triu(r).to(policy.io_dtype)
 

@@ -144,6 +144,25 @@ def plan_tree(m: int, n: int, leaf_rows: int = DEFAULT_LEAF_ROWS,
     return bs, L, bs * L
 
 
+def tree_plan(m: int, n: int, leaf_rows: int = DEFAULT_LEAF_ROWS,
+              fanin: int = DEFAULT_FANIN) -> tuple[int, int, int]:
+    """The tree :func:`tsqr` builds, (batch_size, leaf_rows, m_padded):
+    :func:`plan_tree` at ``fanin``, unless its leaf count, a power of
+    ``fanin``, leaves fewer than n of A's rows to a leaf, so that zero
+    rows pad every leaf up to n; then :func:`plan_tree` at fan-in 2, the
+    least power of two at or above the leaf count.  (At (2^15, 128) the
+    first is 512 leaves of 64 rows padded to 128, a tree of 2^16 rows;
+    the second 128 leaves of 256.)  Every level reduces at min(fan-in,
+    batch), so any power of two is a leaf count the levels take.  A plan
+    at :func:`inner_route`'s fan-in alone would build the same trees at
+    (2^15, 128) and (2^20, 128), but at (2^20, 256) 1024 leaves of 1024
+    rows at fan-in 4, where this builds 4096 of 256 and six levels."""
+    bs, L, m_pad = plan_tree(m, n, leaf_rows, fanin)
+    if L > _round_up(-(-m // bs), 8):
+        return plan_tree(m, n, leaf_rows, 2)
+    return bs, L, m_pad
+
+
 def _pad_rows(a: Tensor, m_pad: int) -> Tensor:
     m = a.shape[0]
     if m_pad == m:
@@ -261,7 +280,7 @@ def tsqr(a: Tensor,
                  else "tsqr.inner.kernel")
         io, work = policy.io_dtype, policy.work_dtype
 
-        bs, L, m_pad = plan_tree(m, n, leaf_rows, fanin)
+        bs, L, m_pad = tree_plan(m, n, leaf_rows, fanin)
         a = _pad_rows(a, m_pad)
 
         if bs == 1:
@@ -323,6 +342,9 @@ def tsqr(a: Tensor,
         return q.to(io), r_out.to(io)
 
 
+# The JAX package's sizing helpers, equal to its own: plan_tree's tree at
+# ``fanin``, the reference's count of a tree's work and memory, which the
+# harness's rates divide by whatever tree ran (tree_plan's pads less).
 def get_batch_size(m: int, leaf_rows: int = DEFAULT_LEAF_ROWS,
                    fanin: int = DEFAULT_FANIN) -> int:
     """Leaf count of the tree."""

@@ -16,7 +16,12 @@ its layer boundaries:
   (the checks, casts and allocations around the launches);
   ``stream.launch``: one ctypes launch of a stream kernel or of its
   reduction stage;
-- ``blockqr``: one ``core.blockqr.qr`` call;
+- ``blockqr``: one ``core.blockqr.qr`` call; inside it, for each panel
+  step (``core.blockqr._panel_step``, and the one panel of n <= the
+  panel width), ``blockqr.project`` (one CGS pass's two products
+  against the Q built so far, attrs c0: the panel's first column, w:
+  its width, pass: 1, or 2 for CGS2's second) and ``blockqr.panel`` (one
+  factorization of the panel, the same attrs; a ``tsqr.tree`` inside);
 - ``tsqr.tree``: one ``core.tsqr.tsqr`` call; inside it ``tsqr.leaves``
   (the leaves' batched QR), ``tsqr.level`` (one level of inner nodes,
   attrs batch: the nodes, fanin: the node's stacked R factors, impl:
@@ -64,6 +69,9 @@ interval launched it.
   call's ``launches.panel_qr_wide`` (7 a call at n = 256; a call whose
   counts differ from ``panel_kernel.wide_kernel_launches`` and
   ``wide_outer_applies`` raises);
+- ``blockqr.panels``, ``blockqr.project``: BlockQR's panel steps, one
+  count a step, and its projection products, one count a product (at
+  (2^15, 2^13) with CGS2: 64 and 252 a call);
 - ``ladder.tier<k>``: ``qr_auto_fused`` calls that ended at tier k, the
   ladder's histogram: a shift toward tier 4 is inputs losing rank;
 - ``tsqr.inner.kernel``, ``tsqr.inner.householder``: levels of a TSQR
