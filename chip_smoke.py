@@ -147,6 +147,8 @@ RSVD_TOL = 1e-4      # a rank-200 input recovered at rank 200 (+8)
 # (core/auto.py _TOL)
 PANEL_TOL = {"fp32": 1e-5, "bf16x6_cor": 1e-5, "bf16x3_cor": 1e-4}
 PANEL_CASES = ((264, 256, 128), (64, 256, 64), (33, 200, 50))
+# a tree level's batches of (256, 128) nodes on the cluster path
+PANEL_LEVEL_BATCHES = (64, 16, 1)
 # the panel_wide phase: the wide panel kernel (128 < n <= 512) against its
 # plain version in every mode at these widths (the last 64-column panel 8
 # wide at 136 and 200), L in {n, 2n, L_WIDE_MAX}, each case its own
@@ -827,13 +829,22 @@ def phase_tier4(gen) -> dict:
     a = torch.rand(M_MAIN, N, device="cuda", generator=gen) * 2 - 1
     a[:, ZERO_COL] = 0.0
     bs, L, levels = tree_launches(M_MAIN, N)
+    fanin = tsqr_mod.inner_route(None, N, tsqr_mod.DEFAULT_FANIN)[1]
+    code = gs._kernel_code(gs._mode(MODE))
+    # the levels whose batch of (fanin N, N) nodes fits one wave of
+    # clusters (panel_kernel.cluster_size), two trees
+    on_clusters = 2 * sum(pk._launch_cluster_size(bs // fanin ** i,
+                                                  fanin * N, N, code) > 1
+                          for i in range(1, levels + 1))
     torch.cuda.synchronize()
     reset_counts()
     inner = trace.counts("tsqr.inner.")
+    clusters = trace.counts("panel_qr.")["cluster_launches"]
     q, r, info = tsqr_tpu_torch.qr_auto_fused(a, MODE, return_info=True)
     torch.cuda.synchronize()
     counts = read_counts()
     inner = trace.counts("tsqr.inner.") - inner
+    clusters = trace.counts("panel_qr.")["cluster_launches"] - clusters
     orth = validation.orthogonality_accurate(q)
     res = validation.residual_accurate(a, q, r)
     if info["tier"] != 4:
@@ -843,9 +854,11 @@ def phase_tier4(gen) -> dict:
                              f"{res:.2e}")
     if (counts["panel_qr"] != 2 * (1 + levels) or counts["stream_gram"] < 1
             or inner != {"kernel": 2 * levels}
-            or counts["split_mm"] != 2 * levels):
+            or counts["split_mm"] != 2 * levels
+            or not 1 <= clusters == on_clusters):
         raise AssertionError(f"tier-4 path launches {counts}, inner levels "
-                             f"{inner}")
+                             f"{inner}, on clusters {clusters} (expected "
+                             f"{on_clusters})")
     del q, r
     ladder = timing.time_cuda(lambda: tsqr_tpu_torch.qr_auto_fused(a, MODE),
                               reps=3, warmup=1)
@@ -862,7 +875,8 @@ def phase_tier4(gen) -> dict:
         "tier4_path": f"qr_auto_fused({M_MAIN}x{N} f32, column {ZERO_COL} "
                       f"zeroed, {MODE})",
         "tier": info["tier"], "orthogonality": orth, "residual": res,
-        "launches": counts, "leaves": [bs, L, N],
+        "launches": counts, "panel_qr_cluster_launches": clusters,
+        "leaves": [bs, L, N],
         "fanin": tsqr_mod.DEFAULT_FANIN, "inner_levels": levels,
         "inner_fanin": tsqr_mod.inner_route(None, N,
                                             tsqr_mod.DEFAULT_FANIN)[1],
@@ -870,7 +884,8 @@ def phase_tier4(gen) -> dict:
         "blockqr_reorth_ms": blockqr_ms, "one_tree_ms": tree_ms,
         "one_tree_r_only_ms": tree_r_ms,
         "torch_linalg_qr_ms": qr_ms}), flush=True)
-    return {"a": a, "counts": counts, "leaves": (bs, L)}
+    return {"a": a, "counts": counts, "leaves": (bs, L),
+            "cluster_launches": clusters}
 
 
 def phase_qr_wide(gen) -> None:
@@ -2225,12 +2240,67 @@ def panel_entry(tier4: dict) -> dict:
             "replaces": "tsqr_tpu/ops/pallas_panel_sb.py:149 (B2); also "
                         "tsqr_tpu/ops/pallas_panel.py:129 (B3) and "
                         "docs/attic/pallas_panel_mt.py:194 (B4)",
-            "launches": tier4["counts"]["panel_qr"], "max_abs_err": err,
+            "launches": (tier4["counts"]["panel_qr"]
+                         - tier4["cluster_launches"]),
+            "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"], "library_ms": lib_ms,
             "shapes": f"({bs}, {L}, {N}) f32 {MODE} leaves of the tier-4 "
-                      "path; library_ms is batched torch.linalg.qr",
+                      "path; launches are that path's on a CTA a tile "
+                      "(panel_qr_cluster counts the rest); library_ms is "
+                      "batched torch.linalg.qr",
             "other_modes_ms": mode_ms}
+
+
+def panel_cluster_entry(tier4: dict, gen) -> dict:
+    """panel_qr.cu's cluster path at a tree level's shapes, (B, 256, 128)
+    bf16x6_cor for B in PANEL_LEVEL_BATCHES (block8192.well's levels take
+    64 ... 1): each launch on clusters (the counter rises), held to the
+    plain version at PANEL_TOL and timed beside one CTA a tile, the plain
+    version and batched torch.linalg.qr, with its bound; launches from
+    the tier-4 path, whose levels of 64 ... 1 nodes take the path."""
+    md = gs._mode(MODE)
+    rows = {}
+    for b in PANEL_LEVEL_BATCHES:
+        nodes = torch.rand(b, 2 * N, N, device="cuda", generator=gen) * 2 - 1
+        nodes[:, :, ZERO_COL] = 0.0
+        before = trace.counts("panel_qr.")["cluster_launches"]
+        err = compare_panel(nodes, MODE, f"panel_qr_cluster ({b}, {2 * N}, "
+                            f"{N})")
+        if trace.counts("panel_qr.")["cluster_launches"] != before + 1:
+            raise AssertionError(f"({b}, {2 * N}, {N}) took no cluster")
+        k = pk._launch_cluster_size(b, 2 * N, N, gs._kernel_code(md))
+        # a launch is ~0.2 ms: 20 back to back between two events, so the
+        # host's launch cost stays out of the time
+        ms, one_cta_ms = (float(np.median(timing.time_cuda(
+            lambda kk=kk: [pk._panel_kernel(nodes, md, kk)
+                           for _ in range(20)], reps=7, warmup=2))) / 20
+            for kk in (k, 1))
+        p_ms = float(np.median(timing.time_cuda(
+            lambda: pk.panel_qr_reference(nodes, MODE), reps=2, warmup=1)))
+        lib_ms = float(np.median(timing.time_cuda(
+            lambda: torch.linalg.qr(nodes), reps=3, warmup=1)))
+        bound = flops.panel_bound(b, 2 * N, N, MODE)
+        rows[b] = {"cluster": k, "max_abs_err": err, "ms": ms,
+                   "one_cta_ms": one_cta_ms, "plain_ms": p_ms,
+                   "bound_ms": bound["bound_ms"],
+                   "bound_by": bound["bound_by"], "library_ms": lib_ms}
+    first = rows[PANEL_LEVEL_BATCHES[0]]
+    return {"name": "panel_qr_cluster", "route": "cuda",
+            "source": PANEL_SOURCE,
+            "replaces": "tsqr_tpu/ops/pallas_panel_sb.py:149 (B2) at a "
+                        "tree level's few nodes",
+            "launches": tier4["cluster_launches"],
+            "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+            "shapes": f"({PANEL_LEVEL_BATCHES[0]}, {2 * N}, {N}) f32 {MODE} "
+                      "tree-level nodes with a zero column (by_batch: each "
+                      "batch, one_cta_ms the same nodes on a CTA a tile; "
+                      "ms and one_cta_ms a launch of 20 timed together); "
+                      "launches are the tier-4 path's on clusters; "
+                      "library_ms is batched torch.linalg.qr",
+            "by_batch": rows}
 
 
 def probe_entry(name: str, counts: dict, gen) -> dict:
@@ -2454,12 +2524,13 @@ def phase_kernels_line(a, counts, gen, tier4: dict, bw_run: dict,
          "timing": "CUDA graph of 20 calls (utils/timing.graph_ms)",
          "single_call_event_ms": r_event_ms},
         panel_entry(tier4),
+        panel_cluster_entry(tier4, gen),
         panel_wide_entry,
         split_mm_entry(split_mm_run, tier4, paths),
         probe_entry("read_reduce", bw_run["counts"], gen),
         probe_entry("copy", bw_run["counts"], gen),
     ]
-    kernels[3:3] = wide_entries(wide)
+    kernels[4:4] = wide_entries(wide)
     for entry in kernels:
         if all(entry["name"] in c for c in paths.values()):
             entry["launches_by_path"] = {p: c[entry["name"]]

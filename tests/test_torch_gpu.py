@@ -418,6 +418,118 @@ def test_panel_kernel_raises_on_what_it_does_not_take(card):
                                       "bf16x3_cor_emu")
 
 
+# ---- panel_qr.cu's cluster path: a tile over 2, 4 or 8 CTAs ---------------
+
+def _cluster_run(a, mode, k):
+    md = gram_stream._mode(mode)
+    launches = trace.counts("launches.")["panel_qr"]
+    clusters = trace.counts("panel_qr.")["cluster_launches"]
+    qt, r, got = panel_kernel._panel_kernel(a, md, k)
+    assert got == k
+    assert trace.counts("launches.")["panel_qr"] == launches + 1
+    assert (trace.counts("panel_qr.")["cluster_launches"]
+            == clusters + (k > 1))
+    return qt, r
+
+
+@pytest.mark.parametrize("mode", list(PANEL_MODES))
+@pytest.mark.parametrize("rows", ["n", "2n", "256", "max"])
+@pytest.mark.parametrize("n", [16, 50, 64, 100, 128])
+def test_cluster_path_is_the_one_cta_kernel_bit_for_bit(card, n, rows,
+                                                        mode):
+    """Each tile over k = 2, 4, 8 CTAs (as many as its 16-column blocks
+    allow, and its shared memory holds) gives the outputs of one CTA a
+    tile bit for bit: every column sees the same operations in the same
+    order.  With a zero column and zero rows below every pivot, at batch
+    1 and 5; n = 100 gives the CTAs of a cluster unequal shares (7
+    blocks)."""
+    L = {"n": n, "2n": 2 * n, "256": 256,
+         "max": panel_kernel.max_leaf_rows(n)}[rows]
+    for batch in (1, 5):
+        a = _tiles(card, batch, L, n, seed=3 * n + L + batch)
+        a[:, :, n // 3] = 0.0         # a zero column: H = I
+        if L > n + 8:
+            a[:, L - 8:, :] = 0.0     # zero rows: zero Q rows
+        qt1, r1 = _cluster_run(a, mode, 1)
+        qt0, r0 = panel_kernel.panel_qr_reference(a, mode)
+        tol = PANEL_MODES[mode]
+        assert _rel(r1, r0) <= tol and _rel(qt1, qt0) <= tol
+        for k in panel_kernel.CLUSTER_SIZES:
+            if (k > -(-n // panel_kernel.BLOCK)
+                    or panel_kernel.cluster_smem_bytes(L, n, k) > 232448):
+                with pytest.raises(RuntimeError, match="cluster"):
+                    _cluster_run(a, mode, k)
+                continue
+            qt, r = _cluster_run(a, mode, k)
+            assert torch.equal(qt, qt1) and torch.equal(r, r1), (k, batch)
+            if L > n + 8:
+                assert bool((qt[:, :, L - 8:] == 0).all())
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16x6_cor", "bf16"])
+@pytest.mark.parametrize("L,n", [(256, 128), (288, 128), (512, 64),
+                                 (100, 50)])
+def test_cluster_path_at_the_largest_batch_each_k_takes(card, L, n, mode):
+    """The most clusters of k the card runs at once (the occupancy query
+    ``cluster_size`` reads), each k against one CTA a tile, bit for bit;
+    ``cluster_size`` takes that batch at k and one more past it below k."""
+    code = gram_stream._kernel_code(gram_stream._mode(mode))
+    for k in panel_kernel.CLUSTER_SIZES:
+        if k > -(-n // panel_kernel.BLOCK):
+            continue
+        most = panel_kernel._max_clusters(code, k, L, n)
+        assert most >= 132 // k // 2, (k, most)  # at least half the card
+        assert panel_kernel._launch_cluster_size(most, L, n, code) >= k
+        assert panel_kernel._launch_cluster_size(most + 1, L, n, code) < k
+        a = _tiles(card, most, L, n, seed=k + L)
+        qt1, r1 = _cluster_run(a, mode, 1)
+        qt, r = _cluster_run(a, mode, k)
+        assert torch.equal(qt, qt1) and torch.equal(r, r1), k
+
+
+def test_tree_levels_take_the_cluster_path(card, monkeypatch):
+    """block8192.well's tree, (2^15, 128) at bf16x6_cor: 128 leaves of 256
+    rows in one launch of a CTA a tile, then seven levels of 64 ... 1
+    (256, 128) nodes on clusters; Q and R those of the tree with a CTA a
+    tile everywhere, bit for bit."""
+    from tsqr_tpu_torch.core import tsqr
+    a = _tiles(card, 1, 1 << 15, N, seed=15)[0]
+    launches = trace.counts("launches.")["panel_qr"]
+    clusters = trace.counts("panel_qr.")["cluster_launches"]
+    with trace.collect() as col:
+        q, r = tsqr.tsqr(a, "bf16x6_cor")
+    assert trace.counts("launches.")["panel_qr"] == launches + 8
+    assert trace.counts("panel_qr.")["cluster_launches"] == clusters + 7
+    ks = [(sp.attrs["batch"], sp.attrs["cluster"]) for sp in col.spans
+          if sp.name == "panel"]
+    assert [b for b, _ in ks] == [128, 64, 32, 16, 8, 4, 2, 1]
+    assert ks[0][1] == 1 and all(k >= 2 for _, k in ks[1:]), ks
+    monkeypatch.setattr(panel_kernel, "_launch_cluster_size",
+                        lambda *args: 1)
+    q1, r1 = tsqr.tsqr(a, "bf16x6_cor")
+    assert trace.counts("panel_qr.")["cluster_launches"] == clusters + 7
+    assert torch.equal(q, q1) and torch.equal(r, r1)
+    assert validation.orthogonality_accurate(q) < 1e-5
+    assert validation.residual_accurate(a, q, r) < 1e-5
+
+
+def test_tier4_call_counts_its_cluster_launches(card):
+    """tall128.rankdef's call, a (2^20, 128) input with a zero column at
+    tier 4: two trees of a leaf launch and 12 levels, the levels of 64 ...
+    1 nodes (seven a tree) on clusters."""
+    gen = torch.Generator(card).manual_seed(16)
+    a = torch.empty(1 << 20, N, device=card).uniform_(-1, 1, generator=gen)
+    a[:, 33] = 0.0
+    launches = trace.counts("launches.")["panel_qr"]
+    clusters = trace.counts("panel_qr.")["cluster_launches"]
+    q, r, info = auto.qr_auto_fused(a, "bf16x6_cor", return_info=True)
+    assert info["tier"] == 4
+    assert trace.counts("launches.")["panel_qr"] == launches + 26
+    assert trace.counts("panel_qr.")["cluster_launches"] == clusters + 14
+    assert validation.orthogonality_accurate(q) < 1e-5
+    assert validation.residual_accurate(a, q, r) < 1e-5
+
+
 WIDE_PANEL_NS = (136, 200, 256, 384, 512)  # the last panel 8 wide at 136, 200
 
 
@@ -522,7 +634,7 @@ def test_tall256_call_on_card_passes_the_cell_limits(card):
     assert trace.counts("launches.")["panel_qr_wide"] - launches \
         == 1 + len(levels) == len(panels)
     assert panels == [{"kernel": "panel_wide", "batch": b, "L": 1024,
-                       "n": 256} for b in [64] + levels]
+                       "n": 256, "cluster": 1} for b in [64] + levels]
     # 3 trailing updates and 4 Q-build panels a wide call at n = 256
     assert (trace.counts("panel_wide.")["outer_applies"] - outer
             == 7 * len(panels))
@@ -548,9 +660,15 @@ def test_block8192_call_on_card_passes_the_cell_limits(card):
     a = torch.empty(1 << 15, 1 << 13, device=card).uniform_(-1, 1,
                                                             generator=gen)
     before = trace.counts("blockqr.")
+    launches = trace.counts("launches.")
+    clusters = trace.counts("panel_qr.")["cluster_launches"]
     q, r = tsqr_tpu_torch.qr(a, "bf16x6_cor", reorth=True)
     assert trace.counts("blockqr.") - before == {"panels": 64,
                                                  "project": 252}
+    # 128 trees of a leaf launch and seven levels, the levels on clusters
+    got = trace.counts("launches.") - launches
+    assert (got["panel_qr"], got["split_mm"]) == (1024, 896)
+    assert trace.counts("panel_qr.")["cluster_launches"] - clusters == 896
     got = reference.judge(a, q, r)
     assert all(got[k] <= limits[k] for k in limits), (got, limits)
 

@@ -174,6 +174,7 @@ def test_status_helpers():
 @pytest.mark.parametrize("source,define,names", [
     ("stream_gram.cu", "N_PHASES", "PHASE_NAMES"),
     ("panel_qr.cu", "N_PHASES", "PANEL_PHASES"),
+    ("panel_qr.cu", "N_PHASES", "CLUSTER_PHASES"),
 ])
 def test_phase_names_match_the_kernels_timers(source, define, names):
     # harness.phase_profile reads (CTAs, N_PHASES) int64 counters back: its

@@ -106,3 +106,77 @@ def test_panel_qr_facade_matches_jax(batched):
     assert qb.dtype == rb.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="expected"):
         panel_qr.panel_qr(torch.zeros(2, 2, 8, 4), device="cpu")
+
+
+# clusters of k the card runs at once: an H100's answer at (256, 128) and
+# (288, 128) (cudaOccupancyMaxActiveClusters, NVIDIA H100 80GB HBM3; its
+# GPCs leave SMs over at k = 4 and 8)
+def _h100(k, L, n):
+    return {2: 66, 4: 30, 8: 15}[k]
+
+
+@pytest.mark.parametrize("batch", [128, 4096, 67, 100])
+def test_cluster_size_is_one_past_a_wave(batch):
+    # a launch of 67 or more (256, 128) tiles fills a wave of clusters of
+    # two: it runs a CTA a tile, as before
+    assert panel_kernel.cluster_size(batch, 256, 128, _h100) == 1
+
+
+@pytest.mark.parametrize("batch,k", [(1, 8), (2, 8), (8, 8), (15, 8),
+                                     (16, 4), (30, 4), (31, 2), (32, 2),
+                                     (64, 2), (66, 2)])
+def test_cluster_size_spreads_a_small_launch(batch, k):
+    # the largest k whose clusters the card runs at once: block8192.well's
+    # levels of 64, 32, 16, 8 ... 1 nodes take 2, 2, 4, 8 ... 8
+    assert panel_kernel.cluster_size(batch, 256, 128, _h100) == k
+
+
+@pytest.mark.parametrize("n,k", [(128, 8), (100, 4), (64, 4),
+                                 (50, 4), (48, 2), (32, 2), (17, 2),
+                                 (16, 1), (1, 1)])
+def test_cluster_size_at_most_the_tiles_blocks(n, k):
+    # a CTA holds at least one 16-column W-Y block: k <= ceil(n / 16)
+    assert panel_kernel.cluster_size(1, 2 * n, n, _h100) == k
+
+
+def test_cluster_size_reads_only_its_arguments_and_falls_with_batch():
+    asked = []
+
+    def clusters(k, L, n):
+        asked.append((k, L, n))
+        return {2: 40, 4: 20, 8: 0}[k]  # no cluster of 8 fits
+
+    ks = [panel_kernel.cluster_size(b, 288, 128, clusters)
+          for b in range(1, 200)]
+    assert all(x >= y for x, y in zip(ks, ks[1:]))  # monotone in batch
+    assert ks[0] == 4 and ks[19] == 4 and ks[20] == 2 and ks[40] == 1
+    assert {a[1:] for a in asked} == {(288, 128)}
+    assert {a[0] for a in asked} <= set(panel_kernel.CLUSTER_SIZES)
+    assert ks == [panel_kernel.cluster_size(b, 288, 128, clusters)
+                  for b in range(1, 200)]
+    # nothing fits: one CTA a tile, whatever the batch
+    assert panel_kernel.cluster_size(1, 288, 128, lambda k, L, n: 0) == 1
+
+
+@pytest.mark.parametrize("n", [17, 50, 64, 100, 128])
+def test_cluster_path_fits_shared_memory(n):
+    # every k the tile's blocks allow fits at L = 256 rows, and at the
+    # tallest tile but for clusters of two at n = 100, where the path
+    # takes k >= 4 or a CTA a tile
+    lm = panel_kernel.max_leaf_rows(n)
+    for k in panel_kernel.CLUSTER_SIZES:
+        if k > -(-n // panel_kernel.BLOCK):
+            continue
+        smem = panel_kernel.cluster_smem_bytes(max(256, n), n, k)
+        assert smem <= 232448
+        tall = panel_kernel.cluster_smem_bytes(lm, n, k)
+        assert (tall <= 232448) == (n != 100 or k != 2), (n, k, tall)
+
+
+def test_panel_span_names_its_cluster():
+    a = torch.from_numpy(_tiles(4))
+    with trace.collect() as col:
+        panel_kernel.panel_qr_batched(a, "fp32")
+    (sp,) = [s for s in col.spans if s.name == "panel"]
+    assert sp.attrs == {"kernel": "panel_qr", "batch": B, "L": L, "n": N,
+                        "cluster": 1}

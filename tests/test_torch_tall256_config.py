@@ -61,7 +61,8 @@ def test_the_call_passes_the_cell_limits():
     # the leaves and each level are one call of the wide panel kernel's
     # plain version
     panels = [s.attrs for s in col.spans if s.name == "panel"]
-    assert panels == [{"kernel": "panel_wide", "batch": b, "L": L, "n": 256}
+    assert panels == [{"kernel": "panel_wide", "batch": b, "L": L, "n": 256,
+                       "cluster": 1}
                       for b, L in ((8, 256), (2, 1024), (1, 512))]
     levels = [s.attrs for s in col.spans if s.name == "tsqr.level"]
     assert [lv["fanin"] for lv in levels] == [4, 2]

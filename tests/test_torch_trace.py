@@ -123,8 +123,8 @@ def test_tier_histogram_and_the_tree_spans(zero_column, tier):
     level = next(s for s in col.spans if s.name == "tsqr.level")
     assert level.attrs == {"batch": 1, "fanin": 8, "impl": "pallas_sb"}
     assert [s.attrs for s in col.spans if s.name == "panel"][:2] == [
-        {"kernel": "panel_qr", "batch": 8, "L": 512, "n": 8},
-        {"kernel": "panel_qr", "batch": 1, "L": 64, "n": 8}]
+        {"kernel": "panel_qr", "batch": 8, "L": 512, "n": 8, "cluster": 1},
+        {"kernel": "panel_qr", "batch": 1, "L": 64, "n": 8, "cluster": 1}]
     sites = {s.attrs["site"] for s in col.spans if s.name == "sync"}
     assert sites == {"tier1_gate", "tier2_gate", "tier3_gate", "iter_loop"}
 

@@ -5,9 +5,11 @@ Builds ``stream_gram.cu`` with ``-DSTREAM_GRAM_PROFILE`` (or, with
 ``--kernel panel``, ``panel_qr.cu`` with ``-DPANEL_QR_PROFILE``): clock64
 phase timers, thread 0 of each CTA.  It runs the main path's call kinds
 once each at (m, 128) (the panel kernel: the tier-4 leaves of an (m, 128)
-input, (m / 256, 256, 128), at bf16x6_cor and fp32) and prints, per call,
-the median kernel ms and each phase's share of the CTAs' mean cycles, as
-one JSON line each:
+input, (m / 256, 256, 128), at bf16x6_cor and fp32; then a tree level's
+(B, 256, 128) nodes at bf16x6_cor for B in ``LEVEL_BATCHES``, one CTA a
+tile and on the cluster path, its phases by the rank of a CTA in its
+cluster) and prints, per call, the median kernel ms and each phase's share
+of the CTAs' mean cycles, as one JSON line each:
 
     python -m tsqr_tpu_torch.harness.phase_profile [--m 1048576]
         [--kernel stream|panel]
@@ -31,6 +33,12 @@ PHASE_NAMES = ("ring_wait", "alias_arrive", "r_image_copy", "dot_split",
 PANEL_PHASES = ("load", "chain_reduce+barrier", "chain_update",
                 "y_split", "factor_dots", "form_w", "factor_update",
                 "r_write", "q_y_split", "q_dots", "q_update", "q_write")
+# panel_qr_cluster_kernel's marks (panel_qr.cu)
+CLUSTER_PHASES = ("load+q_write", "chain_reduce+barrier", "chain_update",
+                  "y_publish", "cluster_barrier", "y_read+split",
+                  "factor_dots", "form_w", "factor_update", "q_dots",
+                  "q_form_w", "q_update")
+LEVEL_BATCHES = (64, 16, 1)
 MAX_PROFILED_CTAS = 1024
 
 
@@ -42,7 +50,7 @@ def _shares(per_cta: np.ndarray, names) -> tuple[float, dict]:
 
 def panel(m: int) -> None:
     """The panel kernel's phases on the tier-4 path's leaves."""
-    from tsqr_tpu_torch.ops import panel_kernel as pk
+    from tsqr_tpu_torch.ops import gram_stream, panel_kernel as pk
     from tsqr_tpu_torch.utils import timing
 
     pk.BUILD_DEFINES = ("PANEL_QR_PROFILE",)
@@ -66,6 +74,27 @@ def panel(m: int) -> None:
         print(json.dumps({"call": f"panel {tuple(leaves.shape)} {mode}",
                           "ms": ms, "cycles_per_cta": total,
                           "share": share}), flush=True)
+    md = gram_stream._mode("bf16x6_cor")
+    for batch in LEVEL_BATCHES:
+        nodes = a[:batch * 256].view(batch, 256, 128)
+        auto = pk._launch_cluster_size(batch, 256, 128,
+                                       gram_stream._kernel_code(md))
+        for k in sorted({1, auto}):
+            ms = timing.median_ms(lambda: pk._panel_kernel(nodes, md, k))
+            pk._panel_kernel(nodes, md, k)
+            torch.cuda.synchronize()
+            if lib.panel_qr_phase_cycles(buf.ctypes.data):
+                raise RuntimeError("reading the phase timers failed")
+            # CTA c of a launch is rank c % k of tile c // k
+            per_rank = buf[:batch * k].astype(np.float64).reshape(
+                batch, k, -1)
+            names = CLUSTER_PHASES if k > 1 else PANEL_PHASES
+            ranks = [_shares(per_rank[:, q], names) for q in range(k)]
+            print(json.dumps({
+                "call": f"panel {tuple(nodes.shape)} bf16x6_cor",
+                "cluster": k, "ms": ms,
+                "cycles_per_cta_by_rank": [t for t, _ in ranks],
+                "share_by_rank": [sh for _, sh in ranks]}), flush=True)
 
 
 def main() -> None:

@@ -70,14 +70,32 @@
 // Measured at (4096, 256, 128) bf16x6_cor on an H100 (PERF.md): 6.7-6.9 ms
 // against the first version's 93.3 ms; the chain takes ~38 % of a tile's
 // cycles, the block products ~37 %.
+//
+// The cluster path (panel_qr_cluster_kernel, below).  A launch of fewer
+// tiles than the card has SMs waits through one tile's serial time while
+// most SMs idle: the TSQR tree's levels of 64, 32, ... 1 (256, 128) nodes.
+// There each tile runs on a thread-block cluster of k = 2, 4 or 8 CTAs,
+// block b of its 16-column W-Y blocks on CTA b % k: the owner of a block
+// runs its chain and publishes Y (with what T is formed from) in its
+// shared memory, the others read it over distributed shared memory and
+// update their own columns, and each CTA builds its own columns of Q.  The wrapper
+// (panel_kernel.cluster_size) takes the largest k <= min(8, ceil(n / 16))
+// whose batch of clusters the card runs at once
+// (cudaOccupancyMaxActiveClusters); launches of a wave or more, such as
+// the tree's leaves, and n <= 16 keep one CTA a tile.  The outputs are
+// those of one CTA a tile, bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "splits.cuh"
 
 typedef __nv_bfloat16 bf16;
+namespace cg = cooperative_groups;
 
 #define THREADS 256
 #define WARPS (THREADS / 32)
@@ -93,7 +111,7 @@ typedef __nv_bfloat16 bf16;
 // harness/phase_profile.py): thread 0 of each CTA adds the clock64() time
 // since its previous mark to the phase that just ended.  Marks follow
 // barriers, so a phase's time includes waiting for the slowest warp.
-#define N_PHASES 12  // see PANEL_PHASES in harness/phase_profile.py
+#define N_PHASES 12  // PANEL_PHASES, CLUSTER_PHASES in harness/phase_profile.py
 #define MAX_PROFILED_CTAS 1024
 #ifdef PANEL_QR_PROFILE
 __device__ long long g_phase_cycles[MAX_PROFILED_CTAS * N_PHASES];
@@ -768,6 +786,338 @@ panel_qr_kernel(const float* __restrict__ a, float* __restrict__ qt,
 #endif
 }
 
+// ---------------------------------------------------------------------
+// The cluster path: one tile over a cluster of k CTAs (k = 2, 4 or 8, at
+// most the tile's blocks).  Block b belongs to CTA b % k, which holds its
+// 16 columns (all rows) in slot b / k of its own tile: a CTA holds
+// ceil(nblk / k) blocks' columns.  Per block j, in turn:
+// * its owner runs the chain as panel_qr_kernel does, then publishes the
+//   block's reflectors (Y's float32 rows >= c0, each a row of 16) in its
+//   shared memory, where they stay until the CTA exits, beside the
+//   chain's beta and Y^T v;
+// * after a cluster barrier, every CTA copies beta and Y^T v and forms T
+//   in its last warp (form_t, as the k = 1 kernel does), and each CTA that
+//   owns blocks right of j reads Y through distributed shared memory,
+//   splits it into its own parts (store_y, as the owner would) and applies
+//   it to those columns (dots, form_w, update: the k = 1 kernel's functions
+//   over its columns) while T forms.
+// Look-ahead: the owner of block j + 1 applies Y_j to that block alone, runs
+// its chain and publishes it before the next barrier; it applies Y_j to its
+// later blocks after that barrier, followed by its own Y_{j+1}, while the
+// owner of j + 2 runs its chain.  The barriers order the steps, so the
+// critical path is a chain and one block's update a block.
+// The Q build: column block i of Q is H_0 ... H_i applied to block i of
+// I_thin, so each CTA builds its own columns from the published Y and its
+// T of blocks i, i - 1, ..., 0, reading each published Y once more, the
+// next one while the current one is applied.
+// Every column sees the k = 1 kernel's operations in its order, each a
+// function of that column alone, so the outputs are bitwise those of
+// panel_qr_kernel.
+
+// Byte offsets of a cluster CTA's dynamic shared memory for an (L, n) tile
+// over k CTAs, sized for the CTA with the most blocks.
+struct ClusterLayout {
+  int nown, ncl, lp, sl, ws;  // blocks and columns a CTA holds at most
+  int at, yp, yb, wb, p, t, ytv, vd, red, rowj, total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int L, int n, int k) {
+  ClusterLayout o;
+  const int nblk = (n + NB - 1) / NB;
+  o.nown = (nblk + k - 1) / k;
+  o.ncl = o.nown * NB;
+  o.lp = (L + 15) / 16 * 16;
+  o.sl = (L + 31) / 32 * 32 + 8;
+  o.ws = o.ncl + 8;
+  int off = 0;
+  o.at = off;   off += o.ncl * o.sl * 4;      // its columns, float32
+  o.yp = off;   off += o.nown * o.lp * NB * 4;  // its blocks' Y, published
+  o.yb = off;   off += 3 * o.lp * YS * 2;     // the applied Y's parts
+  o.wb = off;   off += 3 * NB * o.ws * 2;     // W's parts (fp32: W^T)
+  o.p = off;    off += NB * o.ncl * 4;        // Y^T X, [k][column]
+  o.t = off;    off += nblk * NB * NB * 4;    // every block's T
+  o.ytv = off;  off += NB * NB * 4;           // the block's Y^T v
+  o.vd = off;   off += nblk * NB * 4;         // each reflector's diagonal
+  o.red = off;  off += 2 * WARPS * NB * 4;    // the chain's warp partials
+  o.rowj = off; off += 2 * NB * 4;            // the chain's pivot row
+  o.total = off;
+  return o;
+}
+
+// X -= Y (T^T (Y^T X)) (TRANS, the factor) or Q -= Y (T (Y^T Q)) (the Q
+// build) for the reflectors of the block at c0 over this CTA's columns
+// c_lo <= c < c_hi, with Y's parts in Yb and T in T; ends on a barrier.
+template <int CODE, bool TRANS>
+__device__ __forceinline__ void apply_block(float* At, int sl, bf16* Yb,
+                                            int ypart, bf16* Wb, int wpart,
+                                            int ws, float* P, const float* T,
+                                            int c0, int nb, int lp, int c_lo,
+                                            int c_hi, int tid, int warp,
+                                            int lane, int ph) {
+  const float* Yf = reinterpret_cast<const float*>(Yb);
+  float* Wt = reinterpret_cast<float*>(Wb);
+  if constexpr (CODE == 0)
+    dots_f32(At, sl, Yf, c0, lp, c_lo, c_hi, P, warp, lane);
+  else
+    dots_mma<CODE>(At, sl, Yb, ypart, c0, lp, c_lo, c_hi, P, warp, lane);
+  __syncthreads();
+  PHASE(ph);
+  form_w<CODE, TRANS>(T, P, nb, c_lo, c_hi, Wb, wpart, ws, Wt, tid);
+  __syncthreads();
+  PHASE(ph + 1);
+  if constexpr (CODE == 0)
+    update_f32(At, sl, Yf, Wt, c0, lp, c_lo, c_hi, tid);
+  else
+    update_mma<CODE>(At, sl, Yb, ypart, Wb, wpart, ws, c0, lp, c_lo, c_hi,
+                     warp, lane);
+  __syncthreads();
+  PHASE(ph + 2);
+}
+
+template <int CODE, int RPT>
+__global__ void __launch_bounds__(THREADS, 1)
+panel_qr_cluster_kernel(const float* __restrict__ a, float* __restrict__ qt,
+                        float* __restrict__ r, int L, int n, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const ClusterLayout lo = cluster_layout(L, n, k);
+  const int sl = lo.sl, lp = lo.lp, ws = lo.ws;
+  const int ypart = lp * YS, wpart = NB * ws;
+  float* At = reinterpret_cast<float*>(smem + lo.at);
+  float* Yp = reinterpret_cast<float*>(smem + lo.yp);
+  bf16* Yb = reinterpret_cast<bf16*>(smem + lo.yb);
+  bf16* Wb = reinterpret_cast<bf16*>(smem + lo.wb);
+  float* P = reinterpret_cast<float*>(smem + lo.p);
+  float* Tall = reinterpret_cast<float*>(smem + lo.t);
+  float* ytv = reinterpret_cast<float*>(smem + lo.ytv);
+  float* vd = reinterpret_cast<float*>(smem + lo.vd);
+  float* red = reinterpret_cast<float*>(smem + lo.red);
+  float* rowj = reinterpret_cast<float*>(smem + lo.rowj);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t tile = blockIdx.x / k;
+  const int nblk = (n + NB - 1) / NB;
+  const int ncl = (nblk - rank + k - 1) / k * NB;  // this CTA's columns
+#ifdef PANEL_QR_PROFILE
+  // phases: 0 load and stores, 1-2 the chain (chain_step's), 3 Y
+  // published, 4 the cluster barrier, 5 beta and Y^T v copied, Y read and
+  // split (and R), 6-8 the factor's dots, W and update, 9-11 the Q
+  // build's
+  if (tid == 0) {
+    for (int p = 0; p < N_PHASES; ++p) phase_cycles[p] = 0;
+    phase_mark = clock64();
+  }
+#endif
+  // this CTA's blocks left of block b, so its first local column right of
+  // them is below(b) * NB
+  auto below = [&](int b) { return b > rank ? (b - rank + k - 1) / k : 0; };
+  auto column = [&](int lc) { return (rank + lc / NB * k) * NB + lc % NB; };
+
+  // ---- load: a thread per row, this CTA's columns, zeros past L and n ----
+  const float* A = a + tile * L * n;
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int i = tid + s * THREADS;
+    if (i >= lp) break;
+    for (int lc0 = 0; lc0 < ncl; lc0 += NB) {
+      const int c0 = column(lc0);
+      float* x = At + lc0 * sl + i;
+      int c = 0;
+      if (i < L) {
+        const float* row = A + (size_t)i * n + c0;
+        if (vec) {
+          for (; c < NB && c0 + c < n; c += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(row + c);
+            x[c * sl] = v.x;
+            x[(c + 1) * sl] = v.y;
+            x[(c + 2) * sl] = v.z;
+            x[(c + 3) * sl] = v.w;
+          }
+        } else {
+          for (; c < NB && c0 + c < n; ++c) x[c * sl] = row[c];
+        }
+      }
+      for (; c < NB; ++c) x[c * sl] = 0.f;
+    }
+  }
+  __syncthreads();
+  PHASE(0);
+
+  // Block b's Y: its owner's published rows >= c0, read into registers
+  // (fetch) and split into Yb (split_in), as the owner would split them.
+  auto fetch = [&](int b, float (&y)[RPT][NB]) {
+    const float* src = cluster.map_shared_rank(Yp, b % k) +
+                       (size_t)(b / k) * lp * NB;
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      const int i = tid + s * THREADS;
+      if (i < lp && i >= b * NB) {
+        const float4* row = reinterpret_cast<const float4*>(src + i * NB);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = row[q];
+          y[s][4 * q] = v.x;
+          y[s][4 * q + 1] = v.y;
+          y[s][4 * q + 2] = v.z;
+          y[s][4 * q + 3] = v.w;
+        }
+      }
+    }
+  };
+  auto split_in = [&](int b, const float (&y)[RPT][NB]) {
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      const int i = tid + s * THREADS;
+      if (i < lp && i >= b * NB) store_y<CODE>(y[s], Yb, ypart, i);
+    }
+  };
+  // Block b's beta (T's diagonal) and Y^T v, copied from its owner (the
+  // owner's own are in place); the caller's next barrier ends the copy.
+  auto take_t = [&](int b) {
+    const int owner = b % k, nb = min(NB, n - b * NB);
+    if (owner == rank) return;
+    float* T = Tall + b * NB * NB;
+    const float* tv = cluster.map_shared_rank(ytv, owner);
+    const float* td = cluster.map_shared_rank(T, owner);
+    if (tid < NB * NB) ytv[tid] = tv[tid];
+    if (tid < nb) T[tid * NB + tid] = td[tid * NB + tid];
+  };
+  auto apply = [&](int b, int c_lo, int c_hi, auto trans) {
+    const int c0 = b * NB;
+    apply_block<CODE, decltype(trans)::value>(
+        At, sl, Yb, ypart, Wb, wpart, ws, P, Tall + b * NB * NB, c0,
+        min(NB, n - c0), lp, c_lo, c_hi, tid, warp, lane,
+        decltype(trans)::value ? 6 : 9);
+  };
+  using Factor = std::true_type;  // W = T^T (Y^T X)
+  using QBuild = std::false_type;  // W = T (Y^T Q)
+
+  // The chain of this CTA's block j, as panel_qr_kernel's, then its Y
+  // published (with its beta and Y^T v, from which each CTA forms T); the
+  // caller's cluster barrier follows.
+  int buf = 0;
+  auto factor = [&](int j) {
+    const int c0 = j * NB, nb = min(NB, n - c0);
+    float* T = Tall + j * NB * NB;
+    float* X = At + (j / k) * NB * sl;
+    float* Y = Yp + (size_t)(j / k) * lp * NB;
+    float xr[RPT][NB];
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      const int i = tid + s * THREADS;
+#pragma unroll
+      for (int c = 0; c < NB; ++c) xr[s][c] = i < lp ? X[c * sl + i] : 0.f;
+    }
+#pragma unroll 1
+    for (int c = 0; c < nb; ++c)
+      chain_step<RPT>(c, c0, nb, xr, T, ytv, red, rowj, vd, buf, tid, warp,
+                      lane);
+#pragma unroll 1
+    for (int c = nb; c < NB; ++c) rotate(xr);  // back to block order
+    __syncthreads();  // vd of the block's last column
+#pragma unroll
+    for (int s = 0; s < RPT; ++s) {
+      const int i = tid + s * THREADS;
+      if (i >= lp) break;
+#pragma unroll
+      for (int c = 0; c < NB; ++c) X[c * sl + i] = xr[s][c];
+      if (i >= c0) {
+        float y[NB];
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          y[c] = (c >= nb || i < c0 + c)
+                     ? 0.f
+                     : (i == c0 + c ? vd[c0 + c] : xr[s][c]);
+        float4* d = reinterpret_cast<float4*>(Y + i * NB);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          d[q] = make_float4(y[4 * q], y[4 * q + 1], y[4 * q + 2],
+                             y[4 * q + 3]);
+      }
+    }
+    PHASE(3);
+  };
+
+  // ---- factor ----
+  if (rank == 0) factor(0);
+  bool deferred = false;  // Y_{j-1} still to apply to this CTA's blocks > j
+  for (int j = 0; j < nblk; ++j) {
+    cluster.sync();  // block j's Y, beta and Y^T v are published
+    PHASE(4);
+    const int next = j + 1;
+    const bool ahead = next < nblk && next % k == rank;  // owns block j + 1
+    // this CTA's blocks > j: all of them, or block j + 1 alone ahead of
+    // its chain; the deferred Y_{j-1} (still in Yb) first
+    const int lc_lo = below(next) * NB, lc_hi = ahead ? lc_lo + NB : ncl;
+    const bool apply_j = lc_lo < lc_hi;
+    float y[RPT][NB];
+    take_t(j);
+    if (apply_j) {
+      fetch(j, y);
+      if (deferred) apply(j - 1, lc_lo, lc_hi, Factor());
+      split_in(j, y);
+    }
+    __syncthreads();
+    PHASE(5);
+    // T_j in the last warp, as panel_qr_kernel forms it, while the others
+    // start on Y_j's dots (form_w reads T after the barrier that ends them)
+    if (warp == WARPS - 1)
+      form_t(Tall + j * NB * NB, ytv, min(NB, n - j * NB), lane);
+    if (apply_j) apply(j, lc_lo, lc_hi, Factor());
+    if (ahead) factor(next);
+    deferred = ahead;
+  }
+  __syncthreads();
+
+  // ---- R: this CTA's columns, exact zeros below the diagonal ----
+  float* R = r + tile * n * n;
+  for (int e = tid; e < n * ncl; e += THREADS) {
+    const int i = e / ncl, lc = e - i * ncl, c = column(lc);
+    if (c < n) R[(size_t)i * n + c] = i <= c ? At[lc * sl + i] : 0.f;
+  }
+  __syncthreads();
+
+  // ---- Q: this CTA's columns, H_b applied for b from its last block down
+  // to 0; a block's own columns set to those of I_thin when b reaches it;
+  // the next block's Y read while this one's is applied ----
+  float y[RPT][NB];
+  const int last = rank + (ncl / NB - 1) * k;  // this CTA's last block
+  fetch(last, y);
+  for (int b = last; b >= 0; --b) {
+    const int lc_lo = below(b) * NB, c0 = b * NB, nb = min(NB, n - c0);
+    split_in(b, y);
+    if (b > 0) fetch(b - 1, y);
+    if (b % k == rank) {
+      float* X = At + (b / k) * NB * sl;
+#pragma unroll
+      for (int s = 0; s < RPT; ++s) {
+        const int i = tid + s * THREADS;
+        if (i >= lp) break;
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          X[c * sl + i] = (c < nb && i == c0 + c) ? 1.f : 0.f;
+      }
+    }
+    __syncthreads();
+    PHASE(5);
+    apply(b, lc_lo, ncl, QBuild());
+  }
+  cluster.sync();  // no CTA exits while another reads its published Y
+
+  float* Q = qt + tile * n * L;
+  for (int e = tid; e < ncl * L; e += THREADS) {
+    const int lc = e / L, i = e - lc * L, c = column(lc);
+    if (c < n) Q[(size_t)c * L + i] = At[lc * sl + i];
+  }
+#ifdef PANEL_QR_PROFILE
+  __syncthreads();
+  PHASE(0);
+  if (tid == 0 && blockIdx.x < MAX_PROFILED_CTAS)
+    for (int p = 0; p < N_PHASES; ++p)
+      g_phase_cycles[blockIdx.x * N_PHASES + p] = phase_cycles[p];
+#endif
+}
+
 template <int CODE, int RPT>
 static int launch(const float* a, float* qt, float* r, int batch, int L,
                   int n, int vec, int smem, cudaStream_t stream) {
@@ -792,6 +1142,55 @@ static int launch_code(int code, const float* a, float* qt, float* r,
   }
 }
 
+typedef void (*ClusterKernel)(const float*, float*, float*, int, int, int);
+
+static ClusterKernel cluster_kernel(int code, int rpt) {
+  switch (code * 2 + rpt - 1) {
+    case 0: return panel_qr_cluster_kernel<0, 1>;
+    case 1: return panel_qr_cluster_kernel<0, 2>;
+    case 2: return panel_qr_cluster_kernel<1, 1>;
+    case 3: return panel_qr_cluster_kernel<1, 2>;
+    case 4: return panel_qr_cluster_kernel<2, 1>;
+    case 5: return panel_qr_cluster_kernel<2, 2>;
+    case 6: return panel_qr_cluster_kernel<3, 1>;
+    default: return panel_qr_cluster_kernel<3, 2>;
+  }
+}
+
+static cudaLaunchConfig_t cluster_config(int grid, int k, int smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = k;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The cluster kernel for (L, n, code, k) with its shared memory set, or
+// null where the path does not take the shape.
+static ClusterKernel cluster_prepare(int L, int n, int code, int k,
+                                     int* smem, cudaError_t* err) {
+  *err = cudaSuccess;
+  const int nblk = (n + NB - 1) / NB;
+  if (n < 1 || n > N_MAX || L < n || L > L_MAX || code < 0 || code > 3 ||
+      (k != 2 && k != 4 && k != 8) || k > nblk)
+    return nullptr;
+  *smem = cluster_layout(L, n, k).total;
+  if (*smem > SMEM_MAX) return nullptr;
+  ClusterKernel kern = cluster_kernel(code, L > THREADS ? 2 : 1);
+  *err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  return *err == cudaSuccess ? kern : nullptr;
+}
+
 extern "C" {
 
 int panel_qr_n_max(void) { return N_MAX; }
@@ -799,6 +1198,41 @@ int panel_qr_l_max(void) { return L_MAX; }
 int panel_qr_block(void) { return NB; }
 long long panel_qr_smem_bytes(int L, int n) { return layout(L, n).total; }
 long long panel_qr_smem_max(void) { return SMEM_MAX; }
+long long panel_qr_cluster_smem_bytes(int L, int n, int k) {
+  return cluster_layout(L, n, k).total;
+}
+
+// How many clusters of k CTAs of the cluster kernel for (L, n, code) the
+// card runs at once, into *clusters (0 where the path does not take the
+// shape).
+int panel_qr_max_clusters(int L, int n, int code, int k, int* clusters) {
+  *clusters = 0;
+  int smem;
+  cudaError_t err;
+  ClusterKernel kern = cluster_prepare(L, n, code, k, &smem, &err);
+  if (!kern) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(k, k, smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+}
+
+// Factor a (batch, L, n) batch as panel_qr_launch does, each tile over a
+// cluster of k CTAs (the cluster kernel above).
+int panel_qr_cluster_launch(const float* a, float* qt, float* r, int batch,
+                            int L, int n, int code, int k, void* stream) {
+  if (batch < 1) return (int)cudaErrorInvalidValue;
+  int smem;
+  cudaError_t err;
+  ClusterKernel kern = cluster_prepare(L, n, code, k, &smem, &err);
+  if (!kern) return (int)(err ? err : cudaErrorInvalidValue);
+  const int vec = n % 4 == 0 && (uintptr_t)a % 16 == 0;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      cluster_config(batch * k, k, smem, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kern, a, qt, r, L, n, vec);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
 #ifdef PANEL_QR_PROFILE
 // Copy the last launch's phase cycles, (MAX_PROFILED_CTAS, N_PHASES)

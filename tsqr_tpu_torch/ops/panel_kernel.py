@@ -11,8 +11,11 @@ fallback.  Two kernels, by width:
 * n <= ``N_MAX`` (128): ``csrc/panel_qr.cu``, the tile resident in one
   CTA's shared memory; n <= L <= :func:`max_leaf_rows` (what that
   memory holds, and at most ``L_MAX``: two rows a thread in the column
-  chain).  Launches counted in the counter ``launches.panel_qr``
-  (``utils/trace.py``).
+  chain).  A launch too small to fill the card spreads each tile over a
+  cluster of :func:`cluster_size` CTAs, each holding some of its W-Y
+  blocks, with the same outputs bit for bit.  Launches counted in the
+  counter ``launches.panel_qr`` (``utils/trace.py``), those on clusters
+  also in ``panel_qr.cluster_launches``.
 * ``N_MAX`` < n <= ``WIDE_N_MAX`` (512, the JAX kernel's edge):
   ``csrc/panel_wide.cu``, the tile in device memory, factored one
   16-column block at a time and updated one ``PANEL`` (64) columns at a
@@ -30,6 +33,7 @@ is the tree's leaf height on them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -51,6 +55,7 @@ _THREADS = 256
 L_MAX = 2 * _THREADS   # most rows: two a thread in the column chain
 _SMEM_MAX = 232448     # dynamic shared memory a block may use on sm_90
 _YS = 24               # bf16 a row of a Y part in shared memory
+CLUSTER_SIZES = (8, 4, 2)  # CTAs a tile on panel_qr.cu's cluster path
 
 # Preprocessor defines of the kernel build; harness/phase_profile.py sets
 # ("PANEL_QR_PROFILE",) to compile the phase timers in.
@@ -73,6 +78,23 @@ def smem_bytes(L: int, n: int) -> int:
             + 2 * (_THREADS // 32) * BLOCK * 4 + 2 * BLOCK * 4)
 
 
+def cluster_smem_bytes(L: int, n: int, k: int) -> int:
+    """Dynamic shared memory of a CTA of an (L, n) tile's cluster of k
+    (``cluster_layout`` in ``panel_qr.cu``), sized for the CTA holding the
+    most W-Y blocks, b = ceil(ceil(n / 16) / k): their float32 columns,
+    their published reflectors (float32, 16 a row), the applied block's Y
+    in bf16 parts, W's parts and Y^T X over its columns, every block's T,
+    and the column chain's buffers as in :func:`smem_bytes`."""
+    nblk = -(-n // BLOCK)
+    ncl = -(-nblk // k) * BLOCK
+    lp = -(-L // 16) * 16
+    sl = -(-L // 32) * 32 + 8
+    return (ncl * sl * 4 + ncl * lp * 4 + 3 * lp * _YS * 2
+            + 3 * BLOCK * (ncl + 8) * 2 + BLOCK * ncl * 4
+            + nblk * BLOCK * BLOCK * 4 + BLOCK * BLOCK * 4 + nblk * BLOCK * 4
+            + 2 * (_THREADS // 32) * BLOCK * 4 + 2 * BLOCK * 4)
+
+
 def max_leaf_rows(n: int) -> int:
     """The largest L, a multiple of 8 and at most ``L_MAX``, whose (L, n)
     tile the kernel's shared memory holds (288 at n = 128, 512 at
@@ -83,6 +105,20 @@ def max_leaf_rows(n: int) -> int:
     while smem_bytes(L, n) > _SMEM_MAX:
         L -= 8
     return L
+
+
+def cluster_size(batch: int, L: int, n: int, max_clusters) -> int:
+    """The CTAs each tile of a (batch, L, n) launch of ``panel_qr.cu``
+    runs on: the largest k of ``CLUSTER_SIZES``, at most the tile's W-Y
+    blocks (ceil(n / ``BLOCK``)), such that the card runs ``batch``
+    clusters of k at once (``max_clusters(k, L, n)`` of them), else 1, a
+    CTA a tile, as a launch of a wave or more runs.  Reads only its
+    arguments."""
+    blocks = -(-n // BLOCK)
+    for k in CLUSTER_SIZES:
+        if k <= blocks and batch <= max_clusters(k, L, n):
+            return k
+    return 1
 
 
 def leaf_rows(n: int) -> int:
@@ -241,7 +277,15 @@ def _lib():
         lib.panel_qr_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.panel_qr_launch.restype = ci
         lib.panel_qr_smem_bytes.argtypes = [ci, ci]
-        for f in (lib.panel_qr_smem_bytes, lib.panel_qr_smem_max):
+        lib.panel_qr_cluster_smem_bytes.argtypes = [ci, ci, ci]
+        lib.panel_qr_cluster_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci,
+                                                ci, vp]
+        lib.panel_qr_cluster_launch.restype = ci
+        lib.panel_qr_max_clusters.argtypes = [ci, ci, ci, ci,
+                                              ctypes.POINTER(ci)]
+        lib.panel_qr_max_clusters.restype = ci
+        for f in (lib.panel_qr_smem_bytes, lib.panel_qr_smem_max,
+                  lib.panel_qr_cluster_smem_bytes):
             f.restype = cll
         for f in (lib.panel_qr_n_max, lib.panel_qr_l_max, lib.panel_qr_block):
             f.restype = ci
@@ -249,10 +293,14 @@ def _lib():
                 or lib.panel_qr_l_max() != L_MAX
                 or lib.panel_qr_smem_max() != _SMEM_MAX
                 or any(lib.panel_qr_smem_bytes(L, n) != smem_bytes(L, n)
-                       for L, n in ((256, 128), (200, 50), (512, 64)))):
+                       for L, n in ((256, 128), (200, 50), (512, 64)))
+                or any(lib.panel_qr_cluster_smem_bytes(L, n, k)
+                       != cluster_smem_bytes(L, n, k)
+                       for L, n, k in ((256, 128, 8), (288, 128, 2),
+                                       (512, 50, 4)))):
             raise RuntimeError("panel_qr.cu and panel_kernel.py disagree on "
                                "N_MAX / L_MAX / BLOCK / the shared-memory "
-                               "layout")
+                               "layouts")
         lib._typed = True
     return lib
 
@@ -322,8 +370,26 @@ def _wide_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
     return qt, r
 
 
-def _panel_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
-    """Launch the CUDA kernel on a (B, L, n) float32 batch."""
+@functools.lru_cache(maxsize=None)
+def _max_clusters(code: int, k: int, L: int, n: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster kernel for a mode
+    code, k, L and n (its shared memory): asked once, then cached."""
+    got = ctypes.c_int()
+    err = _lib().panel_qr_max_clusters(L, n, code, k, ctypes.byref(got))
+    gram_stream._raise_on(err, "panel_qr_max_clusters")
+    return got.value
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_cluster_size(batch: int, L: int, n: int, code: int) -> int:
+    return cluster_size(batch, L, n, functools.partial(_max_clusters, code))
+
+
+def _panel_kernel(a: Tensor, md: modes.ComputeMode,
+                  k: int | None = None) -> tuple[Tensor, Tensor, int]:
+    """Launch the CUDA kernel on a (B, L, n) float32 batch, each tile of
+    ``panel_qr.cu`` over a cluster of k CTAs (:func:`cluster_size`'s k
+    where k is None; 1 on ``panel_wide.cu``).  Returns (Q^T, R, k)."""
     B, L, n = a.shape
     if n > WIDE_N_MAX:
         raise ValueError(f"the panel kernels take n <= {WIDE_N_MAX}, got "
@@ -332,19 +398,30 @@ def _panel_kernel(a: Tensor, md: modes.ComputeMode) -> tuple[Tensor, Tensor]:
         raise ValueError(f"the panel kernel reads float32 tiles, got "
                          f"{a.dtype}")
     if n > N_MAX:
-        return _wide_kernel(a, md)
+        return (*_wide_kernel(a, md), 1)
     if L > max_leaf_rows(n):  # also L <= L_MAX
         raise ValueError(f"the panel kernel holds L <= {max_leaf_rows(n)} "
                          f"rows at n={n} in shared memory, got L={L}")
+    code = gram_stream._kernel_code(md)
+    if k is None:
+        k = _launch_cluster_size(B, L, n, code)
     a = a.contiguous()
     qt = torch.empty(B, n, L, dtype=torch.float32, device=a.device)
     r = torch.empty(B, n, n, dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib().panel_qr_launch(a.data_ptr(), qt.data_ptr(), r.data_ptr(),
-                                 B, L, n, gram_stream._kernel_code(md), stream)
-    gram_stream._raise_on(err, "panel_qr_kernel launch")
+    if k == 1:
+        err = _lib().panel_qr_launch(a.data_ptr(), qt.data_ptr(),
+                                     r.data_ptr(), B, L, n, code, stream)
+    else:
+        err = _lib().panel_qr_cluster_launch(a.data_ptr(), qt.data_ptr(),
+                                             r.data_ptr(), B, L, n, code, k,
+                                             stream)
+    gram_stream._raise_on(err, "panel_qr_kernel launch" if k == 1
+                          else f"panel_qr_cluster_kernel launch (k={k})")
     trace.count("launches.panel_qr")
-    return qt, r
+    if k > 1:
+        trace.count("panel_qr.cluster_launches")
+    return qt, r, k
 
 
 def panel_qr_batched(a: Tensor, mode="fp32") -> tuple[Tensor, Tensor]:
@@ -357,14 +434,16 @@ def panel_qr_batched(a: Tensor, mode="fp32") -> tuple[Tensor, Tensor]:
     n <= ``N_MAX``, ``panel_wide.cu`` up to ``WIDE_N_MAX``), which raises
     for the shapes it does not take; a CPU tensor through
     :func:`panel_qr_reference`.  Each call is a ``panel`` span
-    (``utils/trace.py``)."""
+    (``utils/trace.py``), its attr cluster the CTAs a tile ran on."""
     _check(a)
     md = gram_stream._mode(mode)
     B, L, n = a.shape
     with trace.span("panel", kernel="panel_qr" if n <= N_MAX
-                    else "panel_wide", batch=B, L=L, n=n):
+                    else "panel_wide", batch=B, L=L, n=n, cluster=1) as sp:
         if a.device.type == "cpu":
             return panel_qr_reference(a, md.value)
         if a.device.type != "cuda":
             raise ValueError(f"panel QR runs on cuda or cpu, got {a.device}")
-        return _panel_kernel(a.to(torch.float32), md)
+        qt, r, k = _panel_kernel(a.to(torch.float32), md)
+        sp.set(cluster=k)
+        return qt, r

@@ -29,8 +29,9 @@ its layer boundaries:
   blocked Householder) and ``tsqr.q_build`` (Q down the tree);
 - ``panel``: one ``ops.panel_kernel.panel_qr_batched`` call, on the card
   or through its plain version (attrs kernel: "panel_qr" for n <= 128,
-  "panel_wide" past it; batch, L, n: the (batch, L, n) tiles); the
-  leaves' and each level's batched QR on the panel route.
+  "panel_wide" past it; batch, L, n: the (batch, L, n) tiles; cluster:
+  the CTAs a tile ran on, 2, 4 or 8 on ``panel_qr.cu``'s cluster path,
+  else 1); the leaves' and each level's batched QR on the panel route.
 
 **Collecting.** ::
 
@@ -69,6 +70,9 @@ interval launched it.
   call's ``launches.panel_qr_wide`` (7 a call at n = 256; a call whose
   counts differ from ``panel_kernel.wide_kernel_launches`` and
   ``wide_outer_applies`` raises);
+- ``panel_qr.cluster_launches``: the launches of ``panel_qr.cu`` that
+  spread each tile over a cluster of CTAs (``panel_kernel.cluster_size``),
+  each also one of ``launches.panel_qr``;
 - ``blockqr.panels``, ``blockqr.project``: BlockQR's panel steps, one
   count a step, and its projection products, one count a product (at
   (2^15, 2^13) with CGS2: 64 and 252 a call);
